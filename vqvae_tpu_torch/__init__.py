@@ -1,0 +1,21 @@
+"""vqvae_tpu_torch: the PyTorch / CUDA port of ``vqvae_tpu`` for NVIDIA Hopper.
+
+Module paths mirror ``vqvae_tpu/``. This slice carries the standard-VQ
+tokenizer API (``VQVAE.get_tokens`` / ``reconstruct`` /
+``reconstruct_from_tokens``) with the nearest-code kernel written for
+``sm_90a`` (``csrc/nearest_codes.cu``). The package imports ``torch`` and
+never ``jax``; configs are parsed by the jax-free ``vqvae_tpu.config``.
+"""
+
+__version__ = "0.1.0"
+
+
+def __getattr__(name):
+    """Lazy top-level conveniences (keep ``import vqvae_tpu_torch`` light)."""
+    if name == "VQVAE":
+        from vqvae_tpu_torch.models.vqvae import VQVAE
+        return VQVAE
+    if name in ("Config", "load_config", "parse_config"):
+        from vqvae_tpu import config
+        return getattr(config, name)
+    raise AttributeError(f"module 'vqvae_tpu_torch' has no attribute {name!r}")

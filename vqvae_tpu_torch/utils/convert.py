@@ -1,0 +1,95 @@
+"""JAX variables -> state_dict of the PyTorch port: the inverse of
+``vqvae_tpu/utils/torch_convert.py::convert_vqvae_state_dict``.
+
+Layout mapping (the JAX package is NHWC, the port NCHW):
+- flax kernel (kh, kw, I, O)  ->  Conv2d weight (O, I, kh, kw)
+- GroupNorm scale / bias (C,)  ->  weight / bias (1, C, 1, 1)
+- codebook (N, D)  ->  quantizer.codebook.weight (N, D) unchanged
+
+Takes the variables as numpy arrays (``{'params': {...}}``).
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(a, dtype=np.float32)))
+
+
+def _key(prefix: str, name: str) -> str:
+    return f"{prefix}.{name}" if prefix else name
+
+
+def conv_state(p: dict, prefix: str) -> Dict[str, torch.Tensor]:
+    """{kernel[, bias]} of a flax conv -> Conv2d weight[, bias]."""
+    out = {_key(prefix, "weight"): _t(np.transpose(np.asarray(p["kernel"]), (3, 2, 0, 1)))}
+    if "bias" in p:
+        out[_key(prefix, "bias")] = _t(p["bias"])
+    return out
+
+
+def groupnorm_state(p: dict, prefix: str) -> Dict[str, torch.Tensor]:
+    """{scale, bias} (C,) -> GroupNorm weight, bias (1, C, 1, 1)."""
+    return {_key(prefix, "weight"): _t(p["scale"]).reshape(1, -1, 1, 1),
+            _key(prefix, "bias"): _t(p["bias"]).reshape(1, -1, 1, 1)}
+
+
+def resblock_state(p: dict, prefix: str) -> Dict[str, torch.Tensor]:
+    out = {**groupnorm_state(p["norm1"], _key(prefix, "norm1")),
+           **conv_state(p["conv1"]["Conv_0"], _key(prefix, "conv1")),
+           **groupnorm_state(p["norm2"], _key(prefix, "norm2")),
+           **conv_state(p["conv2"]["Conv_0"], _key(prefix, "conv2"))}
+    if "conv_shortcut" in p:
+        out.update(conv_state(p["conv_shortcut"]["Conv_0"], _key(prefix, "conv_shortcut")))
+    return out
+
+
+def convert_encoder(p: dict, num_res_blocks: int, num_levels: int,
+                    prefix: str = "encoder") -> Dict[str, torch.Tensor]:
+    """flax Encoder params -> Encoder state (blocks index level*(n+1)+j; the
+    parameter-free Downsample holds slot level*(n+1)+n)."""
+    n = num_res_blocks
+    sd = {**conv_state(p["conv_in"]["Conv_0"], _key(prefix, "conv_in")),
+          **groupnorm_state(p["norm_out"], _key(prefix, "norm")),
+          **conv_state(p["conv_out"]["Conv_0"], _key(prefix, "conv_out"))}
+    for i in range(num_levels):
+        for j in range(n):
+            sd.update(resblock_state(p[f"down_{i}_block_{j}"],
+                                     _key(prefix, f"blocks.{i * (n + 1) + j}")))
+    for j in range(n):
+        sd.update(resblock_state(p[f"final_block_{j}"], _key(prefix, f"final_residual.{j}")))
+    return sd
+
+
+def convert_decoder(p: dict, num_res_blocks: int, num_levels: int,
+                    prefix: str = "decoder") -> Dict[str, torch.Tensor]:
+    """flax Decoder params -> Decoder state (blocks position p counts levels
+    L-1, ..., 0; each level is n ResBlocks then an Upsample)."""
+    n = num_res_blocks
+    sd = {**conv_state(p["conv_in"]["Conv_0"], _key(prefix, "conv_in")),
+          **groupnorm_state(p["norm_out"], _key(prefix, "norm")),
+          **conv_state(p["conv_out"]["Conv_0"], _key(prefix, "conv_out"))}
+    for j in range(n):
+        sd.update(resblock_state(p[f"initial_block_{j}"], _key(prefix, f"initial_residual.{j}")))
+    for pos, i in enumerate(reversed(range(num_levels))):
+        for j in range(n):
+            sd.update(resblock_state(p[f"up_{i}_block_{j}"],
+                                     _key(prefix, f"blocks.{pos * (n + 1) + j}")))
+        sd.update(conv_state(p[f"up_{i}_upsample"]["conv"]["Conv_0"],
+                             _key(prefix, f"blocks.{pos * (n + 1) + n}.conv")))
+    return sd
+
+
+def convert_vqvae_variables(variables: dict, num_res_blocks: int,
+                            num_levels: int) -> Dict[str, torch.Tensor]:
+    """Standard-VQ flax VQVAE variables -> port VQVAE state_dict, to load
+    with ``load_state_dict(strict=True)``."""
+    params = variables["params"]
+    return {**convert_encoder(params["encoder"], num_res_blocks, num_levels),
+            **convert_decoder(params["decoder"], num_res_blocks, num_levels),
+            "quantizer.codebook.weight": _t(params["quantizer"]["codebook"])}
