@@ -4,19 +4,33 @@
 
 Run from the root of a checkout on a machine with a CUDA card and the CUDA
 toolkit (nvcc). It builds the port's kernels from ``vqvae_tpu_torch/csrc``
-into ``vqvae_tpu_torch/_build/``, then runs five phases; a failure in any of
-them ends the script with a non-zero exit and no result line:
+into ``vqvae_tpu_torch/_build/`` (one nvcc per source, all at once), then
+runs these phases; a failure in any of them ends the script with a non-zero
+exit and no result line:
 
 1. device: card name and power limit (nvidia-smi); TF32 off for matmuls and
    convolutions, so that fp32 means fp32;
 2. build: the time nvcc takes;
-3. kernel vs plain: the nearest-code kernel against
-   ``nearest_codes_reference`` at the tokenizer's shapes and at ragged ones;
-4. slice: the tokenizer API (``get_tokens``, ``reconstruct``,
+3. B1 vs plain: the nearest-code kernel against ``nearest_codes_reference``
+   at the tokenizer's shapes and at ragged ones;
+4. tokenizer slice: the tokenizer API (``get_tokens``, ``reconstruct``,
    ``reconstruct_from_tokens``) at full width on
    ``example_confs/standard_vqvae.yaml`` with seeded random weights, at
    batch 1, 8 and 32, counting kernel launches;
-5. times: CUDA events, warm-up, median of 5 windows.
+5. B2 vs plain: the nearest-code-statistics kernel against
+   ``nearest_codes_stats_reference`` at the EMA training shape and at
+   ragged ones: codes by B1's near-tie rule, counts exact, sums within
+   ``1e-6 (1 + count) max|x|``, unused codes exactly 0, two launches
+   bit-identical;
+6. training slice: ``train.loop.Trainer`` at full width on
+   ``example_confs/ema_vqvae.yaml`` with seeded random weights, one fixed
+   batch of 32: 8 steps in fp32, then 8 in bf16 compute, counting launches
+   (16 of B2, none of B1); the EMA buffers after the first fp32 step held
+   against a plain recomputation from that step's encoder latents; then
+   ``eval_step`` and ``get_tokens`` on the trained model (B1);
+7. times: CUDA events, warm-up, median of 5 windows: B1 and B2 against
+   their plain versions and a PyTorch composition, the tokenizer calls, the
+   train step.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a visible CUDA device it exits
@@ -26,6 +40,7 @@ non-zero before doing anything.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -38,16 +53,29 @@ from vqvae_tpu_torch import load_config
 from vqvae_tpu_torch.models.preprocess import preprocess_batch
 from vqvae_tpu_torch.models.vqvae import VQVAE
 from vqvae_tpu_torch.ops import _build, vq_cuda
-from vqvae_tpu_torch.ops.vq import code_mismatches, nearest_codes, nearest_codes_reference
+from vqvae_tpu_torch.ops.vq import (code_mismatches, nearest_codes, nearest_codes_reference,
+                                    nearest_codes_stats, nearest_codes_stats_reference)
+from vqvae_tpu_torch.train.loop import Trainer
 
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "example_confs" / "standard_vqvae.yaml"
+TRAIN_CONFIG = ROOT / "example_confs" / "ema_vqvae.yaml"
 SEED = 0
 KERNEL_SHAPES = [(8192, 1024, 256), (256, 1024, 256), (1000, 37, 8), (4097, 1024, 256)]
+STATS_SHAPES = [(8192, 4096, 256), (256, 4096, 256), (1000, 37, 8), (4097, 1024, 256)]
 MISMATCH_SHARE = 1e-4       # at most 0.01% of rows may differ, each a near-tie
 RECON_ATOL = 1e-4           # reconstruct_from_tokens(get_tokens(x)) vs reconstruct(x)
+DW_RTOL = 1e-6              # |dw - dw_plain| <= DW_RTOL (1 + count) max|x|, per code
+EMA_RTOL, EMA_ATOL = 1e-5, 1e-6   # EMA buffers after a step vs the plain recomputation
 BATCHES = (1, 8, 32)
 TIMED_BATCH = 32
+TRAIN_BATCH = 32
+TRAIN_STEPS = 8             # per precision
+STEPS_PER_EPOCH = 1000      # the LR schedule's epoch; the smoke run stays in epoch 0
+# published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): fp32 on the
+# CUDA cores, and device memory
+FP32_FLOPS = 67e12
+MEM_BYTES_PER_S = 3.35e12
 
 
 def check(ok: bool, what: str) -> None:
@@ -86,13 +114,23 @@ def phase_device() -> str:
     return smi
 
 
+def bound(flops: float, nbytes: float):
+    """(least ms the card could take, "operations" or "bytes")."""
+    t_ops = flops / FP32_FLOPS * 1e3
+    t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
 def phase_build() -> None:
-    so = _build.library_path("nearest_codes")
-    fresh = not so.exists()
+    names = ("nearest_codes", "nearest_codes_stats")
+    fresh = [n for n in names if not _build.library_path(n).exists()]
     t0 = time.perf_counter()
+    _build.build(names)
     vq_cuda.library()
-    print(f"build: nearest_codes.cu {'built' if fresh else 'found built'} in "
-          f"{time.perf_counter() - t0:.2f} s -> {so.relative_to(ROOT)}")
+    vq_cuda.stats_library()
+    print(f"build: {', '.join(f'{n}.cu' for n in names)}: {len(fresh)} built, in parallel, "
+          f"in {time.perf_counter() - t0:.2f} s -> "
+          f"{', '.join(str(_build.library_path(n).relative_to(ROOT)) for n in names)}")
 
 
 def _agree(x, cb, got, want, what: str) -> float:
@@ -144,6 +182,7 @@ def phase_slice(cfg, device):
     batches = {b: torch.rand(b, size, size, 3, device=device, generator=gen) for b in BATCHES}
 
     nearest_codes.launches = 0
+    nearest_codes_stats.launches = 0
     outputs = {}
     for b, images in batches.items():
         tokens = model.get_tokens(images)
@@ -152,10 +191,11 @@ def phase_slice(cfg, device):
     torch.cuda.synchronize()
     launches = nearest_codes.launches
     print(f"slice: {2 * len(BATCHES)} tokenizer calls launched the nearest_codes kernel "
-          f"{launches} times")
+          f"{launches} times, nearest_codes_stats {nearest_codes_stats.launches} times")
     # one launch per get_tokens and one per reconstruct, at every batch size
-    check(launches == 2 * len(BATCHES),
-          f"the main path launched the nearest_codes kernel {2 * len(BATCHES)} times")
+    check(launches == 2 * len(BATCHES) and nearest_codes_stats.launches == 0,
+          f"the tokenizer path launched the nearest_codes kernel {2 * len(BATCHES)} times "
+          "and nearest_codes_stats never")
 
     n_codes = cfg.quantizer.num_embeddings
     seq = cfg.latent_size ** 2
@@ -182,20 +222,235 @@ def phase_slice(cfg, device):
     return model, launches, max_gap
 
 
+def _stats_agree(x, cb, got, what: str) -> float:
+    """B2's outputs against the plain version on the same inputs; returns the
+    largest |dw - dw_plain|."""
+    codes, counts, dw = got
+    n = cb.shape[0]
+    _agree(x, cb, codes, nearest_codes_reference(x, cb), f"{what}: codes")
+    check(torch.equal(codes, vq_cuda.nearest_codes_cuda(x, cb)), f"{what}: B2 codes == B1 codes")
+    check(torch.equal(counts, torch.bincount(codes.long(), minlength=n).float()),
+          f"{what}: counts == bincount of the codes")
+    # the plain sums of the kernel's own codes: a near-tie flip is not a sum error
+    onehot = torch.nn.functional.one_hot(codes.long(), n).float()
+    err = (dw - onehot.T @ x).abs()
+    limit = DW_RTOL * (1 + counts[:, None]) * x.abs().max()
+    unused = counts == 0
+    check(bool((err <= limit).all()), f"{what}: dw within {DW_RTOL} (1 + count) max|x|")
+    check(bool((dw[unused] == 0).all()), f"{what}: unused codes have dw exactly 0")
+    again = vq_cuda.nearest_codes_stats_cuda(x, cb)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)), f"{what}: bit-identical rerun")
+    max_err = float(err.max())
+    print(f"{what}: counts == bincount, {int(unused.sum())} of {n} codes unused (dw 0), "
+          f"max |dw - plain| {max_err:.3e} (worst share of limit "
+          f"{float((err / limit).max()):.3f}), second launch bit-identical")
+    return max_err
+
+
+def phase_stats_kernel(device) -> float:
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    max_err = 0.0
+    for m, n, d in STATS_SHAPES:
+        cb = torch.randn(n, d, device=device, generator=gen)
+        near = cb[torch.randint(0, n, (m,), device=device, generator=gen)]
+        for kind, x in (
+                ("gaussian", torch.randn(m, d, device=device, generator=gen)),
+                ("near codebook rows", near + 0.05 * torch.randn(m, d, device=device,
+                                                                  generator=gen))):
+            got = vq_cuda.nearest_codes_stats_cuda(x, cb)
+            torch.cuda.synchronize()
+            max_err = max(max_err, _stats_agree(x, cb, got, f"B2 vs plain ({m},{n},{d}) {kind}"))
+    return max_err
+
+
+class _FirstQuantizerCall:
+    """Forward hooks on the quantizer: the first train=True call's latents, the
+    EMA buffers before it, and the codes it picked."""
+
+    def __init__(self, quantizer):
+        self.z = self.before = self.codes = None
+        self._handles = [
+            quantizer.register_forward_pre_hook(self._pre, with_kwargs=True),
+            quantizer.register_forward_hook(self._post, with_kwargs=True)]
+
+    def _pre(self, module, args, kwargs):
+        if self.z is None and kwargs.get("train"):
+            self.z = args[0].detach().clone()
+            self.before = {k: v.clone() for k, v in module.state_dict().items()}
+
+    def _post(self, module, args, kwargs, out):
+        if self.codes is None and kwargs.get("train"):
+            self.codes = out[1].reshape(-1).clone()
+
+    def remove(self):
+        for h in self._handles:
+            h.remove()
+
+
+def _check_ema_update(quantizer, first: "_FirstQuantizerCall") -> None:
+    """EMA buffers after the first step against the EMA formula applied to
+    the plain statistics of that step's latents."""
+    z = first.z
+    b, d = z.shape[0], z.shape[1]
+    flat = z.permute(0, 2, 3, 1).reshape(-1, d)
+    before = first.before
+    cb0 = before["codebook.weight"]
+    decay, eps, n = quantizer.decay, quantizer.epsilon, quantizer.num_embeddings
+    codes, counts, dw = nearest_codes_stats_reference(flat, cb0)
+    _agree(flat, cb0, first.codes, codes, "train slice: first step's codes vs plain")
+    n_mis = int((first.codes != codes).sum())
+    if n_mis:  # near-ties only (checked above): hold the sums to the kernel's codes
+        onehot = torch.nn.functional.one_hot(first.codes.long(), n).float()
+        counts, dw = onehot.sum(0), onehot.T @ flat
+    ema_count = before["ema_count"] * decay + (1 - decay) * counts
+    ema_count = (ema_count + eps) / (b + n * eps) * b
+    ema_weight = before["ema_weight"] * decay + (1 - decay) * dw
+    want = {"ema_count": ema_count, "ema_weight": ema_weight,
+            "codebook.weight": ema_weight / ema_count[:, None]}
+    shares = {}
+    for k, v in quantizer.state_dict().items():
+        shares[k] = float(((v - want[k]).abs() / (EMA_ATOL + EMA_RTOL * want[k].abs())).max())
+        check(shares[k] <= 1, f"train slice: {k} after the first step vs the plain EMA update")
+    print(f"train slice: EMA buffers after the first fp32 step equal the plain update of that "
+          f"step's latents (rtol {EMA_RTOL}, atol {EMA_ATOL}; worst share of the tolerance "
+          f"{', '.join(f'{k} {v:.3f}' for k, v in shares.items())}; {n_mis} codes differ from "
+          f"the plain argmin; {int((counts > 0).sum())} codes used of {n})")
+
+
+def phase_train(cfg, device, card: str):
+    """8 fp32 + 8 bf16 full-width EMA train steps on one fixed batch, then
+    eval_step and get_tokens on the fp32-trained model, then the train
+    step's time. Returns the path's (B1 launches, B2 launches)."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 4)
+    size = cfg.image_size
+    batch = {"image": torch.rand(TRAIN_BATCH, size, size, 3, device=device, generator=gen)}
+    lr = cfg.training.scaled_lr()
+    trainers, states = {}, {}
+
+    nearest_codes.launches = 0
+    nearest_codes_stats.launches = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        trainer = Trainer(cfg, learning_rate=lr, seed=SEED, steps_per_epoch=STEPS_PER_EPOCH,
+                          compute_dtype=dtype, device=device)
+        state = trainer.init_state()
+        first = _FirstQuantizerCall(state.model.quantizer) if dtype == torch.float32 else None
+        history = []
+        for _ in range(TRAIN_STEPS):
+            state, metrics = trainer.train_step(state, batch)
+            history.append(metrics)
+            if first is not None:
+                torch.cuda.synchronize()
+                _check_ema_update(state.model.quantizer, first)
+                first.remove()
+                first = None
+        torch.cuda.synchronize()
+        history = [{k: float(v) for k, v in m.items()} for m in history]
+        check(all(math.isfinite(v) for m in history for v in m.values()),
+              f"train slice {name}: every metric finite")
+        losses = [m["loss"] for m in history]
+        print(f"train slice {name}: {TRAIN_STEPS} steps at batch {TRAIN_BATCH}, lr "
+              f"{history[0]['lr']:.6g}, loss " + " ".join(f"{v:.5f}" for v in losses)
+              + f"; quant_loss {history[0]['quant_loss']:.5f} -> {history[-1]['quant_loss']:.5f}"
+              + f"; usage {int((state.usage_count > 0).sum())} codes used")
+        check(losses[-1] < losses[0], f"train slice {name}: loss of step {TRAIN_STEPS} below step 1")
+        trainers[dtype], states[dtype] = trainer, state
+    torch.cuda.synchronize()
+    b2, b1_train = nearest_codes_stats.launches, nearest_codes.launches
+    print(f"train slice: {2 * TRAIN_STEPS} train steps launched nearest_codes_stats {b2} times, "
+          f"nearest_codes {b1_train} times")
+    check(b2 == 2 * TRAIN_STEPS and b1_train == 0,
+          f"the train steps launched nearest_codes_stats {2 * TRAIN_STEPS} times and "
+          "nearest_codes never")
+
+    trainer, state = trainers[torch.float32], states[torch.float32]
+    mask = torch.ones(TRAIN_BATCH, dtype=torch.bool, device=device)
+    mask[-3:] = False
+    metrics, usage, recon = trainer.eval_step(state, {"image": batch["image"], "mask": mask})
+    tokens = state.model.get_tokens(batch["image"])
+    torch.cuda.synchronize()
+    b1 = nearest_codes.launches
+    check(b1 == 2 and nearest_codes_stats.launches == b2,
+          "eval_step and get_tokens launched nearest_codes twice and nearest_codes_stats never")
+    n_valid = int(mask.sum())
+    seq = cfg.latent_size ** 2
+    check(all(math.isfinite(float(v)) for v in metrics.values())
+          and int(metrics["n_valid"]) == n_valid and int(usage.sum()) == n_valid * seq
+          and recon.shape == batch["image"].shape, "eval_step: finite metrics, masked usage")
+    check(tokens.shape == (TRAIN_BATCH, seq) and bool(((tokens >= 0) & (tokens < usage.numel())).all()),
+          "get_tokens on the trained model: shape and range")
+    with torch.inference_mode():
+        z = state.model.encode(preprocess_batch(batch["image"]))
+        flat = z.reshape(-1, z.shape[-1])
+        cb = state.model.quantizer.codebook.weight
+        _agree(flat, cb, tokens.reshape(-1), nearest_codes_reference(flat, cb),
+               "train slice: get_tokens on the trained model vs plain")
+    print(f"train slice: eval_step {{{', '.join(f'{k}: {float(v):.5f}' for k, v in metrics.items())}}}, "
+          f"usage {int(usage.sum())} rows; get_tokens {tuple(tokens.shape)}; the path launched "
+          f"nearest_codes {b1} times and nearest_codes_stats {b2} times")
+
+    for dtype, trainer in trainers.items():
+        state = states[dtype]
+        ms = cuda_ms(lambda: trainer.train_step(state, batch), reps=1)
+        print(f"time [{card}]: train_step ema {str(dtype).removeprefix('torch.')} batch "
+              f"{TRAIN_BATCH}: {ms:.2f} ms, {TRAIN_BATCH * 1000 / ms:.1f} images/s")
+    return b1, b2
+
+
+def _turns(fns: dict, reps: int) -> dict:
+    """Median ms of each function, timed in turns a, b, ..., ..., b, a so that
+    every side sees the same card state; -> {name: (mean ms, [window ms])}."""
+    order = list(fns) + list(reversed(fns))
+    times = {k: [] for k in fns}
+    for k in order:
+        times[k].append(cuda_ms(fns[k], reps=reps))
+    return {k: (statistics.mean(v), v) for k, v in times.items()}
+
+
 def phase_times(cfg, model, device, card: str):
     gen = torch.Generator(device=device).manual_seed(SEED + 2)
-    x = torch.randn(8192, 256, device=device, generator=gen)
-    cb = torch.randn(1024, 256, device=device, generator=gen)
-    # plain, kernel, kernel, plain: both sides see the same card state
-    plain, kernel = [], []
-    for side in (plain, kernel, kernel, plain):
-        fn = (lambda: nearest_codes_reference(x, cb)) if side is plain else (
-            lambda: vq_cuda.nearest_codes_cuda(x, cb))
-        side.append(cuda_ms(fn, reps=50))
-    kernel_ms, plain_ms = statistics.mean(kernel), statistics.mean(plain)
-    print(f"time [{card}]: nearest_codes (8192,1024,256) kernel {kernel_ms:.4f} ms "
-          f"(windows {kernel[0]:.4f}, {kernel[1]:.4f}), plain matmul+argmin {plain_ms:.4f} ms "
-          f"(windows {plain[0]:.4f}, {plain[1]:.4f})")
+    rows = {}
+    for m, n, d in ((8192, 1024, 256), (8192, 4096, 256)):
+        x = torch.randn(m, d, device=device, generator=gen)
+        cb = torch.randn(n, d, device=device, generator=gen)
+        c2 = (cb ** 2).sum(1)
+        t = _turns({"plain": lambda: nearest_codes_reference(x, cb),
+                    "kernel": lambda: vq_cuda.nearest_codes_cuda(x, cb),
+                    # one cuBLAS GEMM with the |c|^2 bias fused, then argmin
+                    "library": lambda: torch.addmm(c2, x, cb.T, alpha=-2).argmin(1)}, reps=20)
+        b_ms, b_by = bound(2 * m * n * d, 4 * (m * d + n * d + m))
+        rows[(m, n, d)] = {k: v[0] for k, v in t.items()} | {"bound": b_ms, "bound_by": b_by}
+        print(f"time [{card}]: nearest_codes ({m},{n},{d}) kernel {t['kernel'][0]:.4f} ms "
+              f"(windows {t['kernel'][1][0]:.4f}, {t['kernel'][1][1]:.4f}), plain matmul+argmin "
+              f"{t['plain'][0]:.4f} ms, addmm+argmin {t['library'][0]:.4f} ms; bound "
+              f"{b_ms:.4f} ms ({b_by})")
+    b1 = rows[(8192, 1024, 256)]
+
+    m, n, d = STATS_SHAPES[0]
+    x = torch.randn(m, d, device=device, generator=gen)
+    cb = torch.randn(n, d, device=device, generator=gen)
+
+    def library_stats():
+        # cuBLAS GEMM + argmin + bincount + index_add_ (atomics: not bit-stable)
+        codes = torch.addmm((cb ** 2).sum(1), x, cb.T, alpha=-2).argmin(1)
+        counts = torch.bincount(codes, minlength=n).float()
+        return codes, counts, torch.zeros(n, d, device=device).index_add_(0, codes, x)
+
+    t = _turns({"plain": lambda: nearest_codes_stats_reference(x, cb),
+                "kernel": lambda: vq_cuda.nearest_codes_stats_cuda(x, cb),
+                "library": library_stats}, reps=10)
+    b_ms, b_by = bound(2 * m * n * d + m * d, 4 * (m * d + n * d + m + n + n * d))
+    b2 = {k: v[0] for k, v in t.items()} | {"bound": b_ms, "bound_by": b_by}
+    print(f"time [{card}]: nearest_codes_stats ({m},{n},{d}) kernel {t['kernel'][0]:.4f} ms "
+          f"(windows {t['kernel'][1][0]:.4f}, {t['kernel'][1][1]:.4f}), plain "
+          f"{t['plain'][0]:.4f} ms, matmul+argmin+bincount+index_add_ {t['library'][0]:.4f} ms; "
+          f"bound {b_ms:.4f} ms ({b_by})")
+    # the sums' pass splits the work by code: rows piled on one code fall on one block
+    skewed = cb[7] + 0.01 * torch.randn(m, d, device=device, generator=gen)
+    used = int((vq_cuda.nearest_codes_stats_cuda(skewed, cb)[1] > 0).sum())
+    ms = cuda_ms(lambda: vq_cuda.nearest_codes_stats_cuda(skewed, cb), reps=10)
+    print(f"time [{card}]: nearest_codes_stats ({m},{n},{d}) with every row near one code "
+          f"({used} codes used): kernel {ms:.4f} ms")
 
     size = cfg.image_size
     images = torch.rand(TIMED_BATCH, size, size, 3, device=device, generator=gen)
@@ -213,7 +468,14 @@ def phase_times(cfg, model, device, card: str):
     ms = cuda_ms(lambda: model_bf16.reconstruct(images), reps=2)
     print(f"time [{card}]: reconstruct bf16 batch {TIMED_BATCH}: {ms:.2f} ms, "
           f"{TIMED_BATCH * 1000 / ms:.1f} images/s")
-    return kernel_ms, plain_ms
+    return b1, b2
+
+
+def _record(name, source, replaces, launches, max_abs_err, shape, t) -> dict:
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": max_abs_err, "ms": t["kernel"],
+            "plain_ms": t["plain"], "bound_ms": t["bound"], "bound_by": t["bound_by"],
+            "library_ms": t["library"], "shape": list(shape)}
 
 
 def main() -> None:
@@ -224,20 +486,22 @@ def main() -> None:
     phase_build()
     kernel_gap = phase_kernel(device)
     cfg = load_config(str(CONFIG))
-    model, launches, slice_gap = phase_slice(cfg, device)
-    kernel_ms, plain_ms = phase_times(cfg, model, device, card)
-    print(json.dumps({"kernels": [{
-        "name": "nearest_codes",
-        "route": "cuda",
-        "source": "vqvae_tpu_torch/csrc/nearest_codes.cu",
-        "replaces": "vqvae_tpu/ops/vq_pallas.py:141",
-        "launches": launches,
-        # largest float64 score gap between the kernel's and the plain
+    model, b1_tokenizer, slice_gap = phase_slice(cfg, device)
+    stats_err = phase_stats_kernel(device)
+    train_cfg = load_config(str(TRAIN_CONFIG))
+    b1_train, b2_train = phase_train(train_cfg, device, card)
+    b1, b2 = phase_times(cfg, model, device, card)
+    print(json.dumps({"kernels": [
+        # launches: the tokenizer path's plus the training path's; max_abs_err:
+        # the largest float64 score gap between the kernel's and the plain
         # version's pick over every compared row (0.0 where all agree)
-        "max_abs_err": max(kernel_gap, slice_gap),
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }]}))
+        _record("nearest_codes", "vqvae_tpu_torch/csrc/nearest_codes.cu",
+                "vqvae_tpu/ops/vq_pallas.py:141", b1_tokenizer + b1_train,
+                max(kernel_gap, slice_gap), (8192, 1024, 256), b1),
+        # max_abs_err: the largest |dw - dw_plain| over the compared shapes
+        _record("nearest_codes_stats", "vqvae_tpu_torch/csrc/nearest_codes_stats.cu",
+                "vqvae_tpu/ops/vq_pallas.py:89", b2_train, stats_err, STATS_SHAPES[0], b2),
+    ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

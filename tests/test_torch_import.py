@@ -1,8 +1,11 @@
 """The PyTorch port stands apart from JAX: importing it and every submodule
-loads no jax / flax / optax, ``chip_smoke.py`` refuses to run without a
-GPU, and the profiler sorts kernel names into the kinds it reports.
+loads neither the JAX package nor jax / flax / optax, no file of it imports
+them, its own config parser equals the JAX package's, its entry points ask
+for the card unless told otherwise, ``chip_smoke.py`` refuses to run without
+a GPU, and the profiler sorts kernel names into the kinds it reports.
 """
 
+import dataclasses
 import re
 import subprocess
 import sys
@@ -15,6 +18,7 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "vqvae_tpu_torch"
+CONFIGS = sorted((ROOT / "example_confs").glob("*.yaml"))
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
@@ -24,7 +28,7 @@ for name in names:
     importlib.import_module(name)
 cfg = vqvae_tpu_torch.load_config("example_confs/standard_vqvae.yaml")
 assert vqvae_tpu_torch.VQVAE.__name__ == "VQVAE" and cfg.latent_size == 16
-loaded = sorted(m for m in ("jax", "flax", "optax") if m in sys.modules)
+loaded = sorted(m for m in ("vqvae_tpu", "jax", "flax", "optax") if m in sys.modules)
 print(len(names), loaded)
 """
 
@@ -34,7 +38,7 @@ def test_import_loads_no_jax():
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n_modules, loaded = out.stdout.split(maxsplit=1)
-    assert int(n_modules) >= 10
+    assert int(n_modules) >= 18
     assert loaded.strip() == "[]"
 
 
@@ -43,9 +47,55 @@ def test_no_source_file_imports_jax():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     offenders = [str(f.relative_to(ROOT)) for f in files if pattern.search(f.read_text())]
     assert offenders == []
-    # the smoke script reaches the shared config only through the port
-    jax_pkg = re.compile(r"^\s*(import|from)\s+vqvae_tpu(\.|\s)", re.M)
-    assert not jax_pkg.search((ROOT / "chip_smoke.py").read_text())
+    jax_pkg = re.compile(r"^\s*(import|from)\s+vqvae_tpu(\.|\s|$)", re.M)
+    assert [str(f.relative_to(ROOT)) for f in files if jax_pkg.search(f.read_text())] == []
+
+
+@pytest.mark.parametrize("path", CONFIGS, ids=lambda p: p.name)
+def test_config_parser_equals_the_jax_packages(path):
+    from vqvae_tpu import config as jax_config
+    from vqvae_tpu_torch import config as port_config
+    want = dataclasses.asdict(jax_config.load_config(str(path)))
+    got = dataclasses.asdict(port_config.load_config(str(path)))
+    assert got == want
+    assert port_config.load_config(str(path)).latent_size == want["image_size"] // 2 ** len(
+        want["autoencoder"]["channel_multipliers"])
+
+
+def test_entry_points_ask_for_the_card_by_default(monkeypatch):
+    """Without ``device`` the model and the Trainer go to CUDA; here the move
+    is recorded, not made, so the test runs without a card."""
+    from vqvae_tpu_torch import load_config
+    from vqvae_tpu_torch.models.vqvae import VQVAE
+    from vqvae_tpu_torch.train.loop import Trainer
+    asked = []
+
+    def record_to(self, device=None, *args, **kwargs):
+        asked.append(device)
+        return self
+
+    monkeypatch.setattr(VQVAE, "to", record_to)
+    cfg = load_config(str(ROOT / "example_confs" / "ema_vqvae.yaml"))
+    tiny = dataclasses.replace(cfg, image_size=16, autoencoder=dataclasses.replace(
+        cfg.autoencoder, channels=32, num_res_blocks=1, channel_multipliers=(1, 2)),
+        quantizer=dataclasses.replace(cfg.quantizer, num_embeddings=32, embedding_dim=8))
+    VQVAE.from_config(tiny)
+    VQVAE.from_config(tiny, device="cpu")
+    assert [torch.device(d) for d in asked] == [torch.device("cuda"), torch.device("cpu")]
+
+    class Asked(Exception):
+        pass
+
+    def record_from_config(cfg, dtype=torch.float32, device="cuda", generator=None):
+        asked.append(device)
+        raise Asked  # the state would be built on the card
+
+    trainer = Trainer(tiny, learning_rate=1e-4, seed=0, steps_per_epoch=10)
+    monkeypatch.setattr(VQVAE, "from_config", record_from_config)
+    asked.clear()
+    with pytest.raises(Asked):
+        trainer.init_state()
+    assert [torch.device(d) for d in asked] == [torch.device("cuda")]
 
 
 def test_chip_smoke_refuses_without_gpu():
@@ -64,6 +114,16 @@ def test_chip_smoke_refuses_without_gpu():
     ("void pointwise_mult_and_sum_complex<float2, 8, 4>", "conv fft"),
     ("void cudnn::ops::nchwToNhwcKernel<__nv_bfloat16>", "conv layout"),
     ("nearest_codes_kernel(float const*, float const*)", "B1 nearest_codes"),
+    ("(anonymous namespace)::nearest_codes_stats_assign_kernel(float const*)",
+     "B2 nearest_codes_stats"),
+    ("(anonymous namespace)::nearest_codes_stats_sum_kernel(float const*, int const*)",
+     "B2 nearest_codes_stats"),
+    ("sm90_xmma_wgrad_implicit_gemm_f32f32_tf32f32_f32_nhwckrsc_nhwc", "conv wgrad"),
+    ("void cudnn::engines_precompiled::wgrad_alg0_engine<float, 128, 6>", "conv wgrad"),
+    ("sm90_xmma_dgrad_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc", "conv dgrad"),
+    ("void cudnn::cnn::dgrad2d_grouped_direct_kernel<float>", "conv dgrad"),
+    ("void at::native::(anonymous namespace)::multi_tensor_apply_kernel<FusedAdamW>",
+     "optimizer"),
     ("void at::native::reduce_kernel<512, 1>", "reduce"),
     ("void at::native::vectorized_elementwise_kernel<4>", "elementwise"),
     ("void at::native::avg_pool2d_out_cuda_frame<float, float>", "other"),
@@ -71,3 +131,10 @@ def test_chip_smoke_refuses_without_gpu():
 def test_profiler_kinds(name, kind):
     from vqvae_tpu_torch.profile_tokenizer import kind_of
     assert kind_of(name) == kind
+
+
+def test_profiler_busy_time_is_the_union_of_kernel_intervals():
+    from vqvae_tpu_torch.profile_tokenizer import busy_ms
+    # two kernels side by side (0-400 and 100-300 us), a gap, then one more
+    assert busy_ms([(100, 300), (0, 400), (1000, 1500)]) == 0.9
+    assert busy_ms([]) == 0.0

@@ -1,10 +1,12 @@
 """vqvae_tpu_torch: the PyTorch / CUDA port of ``vqvae_tpu`` for NVIDIA Hopper.
 
-Module paths mirror ``vqvae_tpu/``. This slice carries the standard-VQ
+Module paths mirror ``vqvae_tpu/``. The port carries the standard-VQ
 tokenizer API (``VQVAE.get_tokens`` / ``reconstruct`` /
-``reconstruct_from_tokens``) with the nearest-code kernel written for
-``sm_90a`` (``csrc/nearest_codes.cu``). The package imports ``torch`` and
-never ``jax``; configs are parsed by the jax-free ``vqvae_tpu.config``.
+``reconstruct_from_tokens``) and the non-GAN training step with the EMA
+quantizer (``train.loop.Trainer``), with the nearest-code kernels written for
+``sm_90a`` (``csrc/nearest_codes.cu``, ``csrc/nearest_codes_stats.cu``). The
+package imports ``torch`` and never ``jax`` nor ``vqvae_tpu``; configs are
+parsed by its own ``config`` module.
 """
 
 __version__ = "0.1.0"
@@ -16,6 +18,6 @@ def __getattr__(name):
         from vqvae_tpu_torch.models.vqvae import VQVAE
         return VQVAE
     if name in ("Config", "load_config", "parse_config"):
-        from vqvae_tpu import config
+        from vqvae_tpu_torch import config
         return getattr(config, name)
     raise AttributeError(f"module 'vqvae_tpu_torch' has no attribute {name!r}")

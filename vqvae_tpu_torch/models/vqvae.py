@@ -16,7 +16,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from vqvae_tpu.config import Config
+from vqvae_tpu_torch.config import Config
 from vqvae_tpu_torch.models.autoencoder import Decoder, Encoder
 from vqvae_tpu_torch.models.preprocess import denormalize, preprocess_batch
 from vqvae_tpu_torch.models.quantizers import codes_to_vec, make_quantizer
@@ -47,10 +47,11 @@ class VQVAE(nn.Module):
 
     @classmethod
     def from_config(cls, cfg: Config, dtype: torch.dtype = torch.float32,
-                    device=None, generator: Optional[torch.Generator] = None) -> "VQVAE":
+                    device="cuda", generator: Optional[torch.Generator] = None) -> "VQVAE":
         """Build from a parsed config; parameters are drawn on the CPU from
         ``generator`` (a seed gives the same weights on every device), then
-        moved to ``device``. Returns the model in eval mode."""
+        moved to ``device``, the card unless the caller asks for the CPU.
+        Returns the model in eval mode."""
         model = cls(
             channels=cfg.autoencoder.channels,
             num_res_blocks=cfg.autoencoder.num_res_blocks,
@@ -64,12 +65,14 @@ class VQVAE(nn.Module):
         )
         return model.to(device).eval()
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None):
+    def forward(self, x: torch.Tensor, train: bool = False,
+                mask: Optional[torch.Tensor] = None):
         """Normalized (-1,1) NHWC images -> (recon (-1,1) NHWC, q_loss,
-        codes (B, S) int32). ``mask``: optional (B,) bool; rows with False
-        are left out of the quantizer loss."""
+        codes (B, S) int32). ``train=True`` advances the EMA quantizer's
+        buffers (never keyed on ``nn.Module.training``); ``mask``: optional
+        (B,) bool, rows with False are left out of the quantizer loss."""
         z = self.encoder(_nchw(x))
-        quantized, codes, q_loss = self.quantizer(z, mask=mask)
+        quantized, codes, q_loss = self.quantizer(z, train=train, mask=mask)
         return _nhwc(self.decoder(quantized)), q_loss, codes
 
     # tokenizer API (reference model.py:458-489)

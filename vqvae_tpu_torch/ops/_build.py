@@ -4,10 +4,11 @@ through ctypes.
 Each ``csrc/<name>.cu`` has a plain C interface (its launch functions
 return ``cudaGetLastError()``, and it exports ``vqt_cuda_error_string``)
 and is compiled on its own into ``_build/lib<name>-<hash>.so``; the hash
-covers the source and the nvcc command, so an edited source is never served
-by a stale library. The build happens on the machine with the card, the
-first time a kernel is launched (a few seconds per file), and never at
-import.
+covers the source, every shared header ``csrc/*.cuh`` and the nvcc command,
+so an edited source or header is never served by a stale library. The build
+happens on the machine with the card, the first time a kernel is launched
+(a few seconds per file), and never at import; ``build`` starts one nvcc per
+missing library, all at once.
 """
 
 from __future__ import annotations
@@ -46,33 +47,53 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to, named by a hash of source + flags."""
+    """Where ``csrc/<name>.cu`` builds to, named by a hash of the source, the
+    shared headers and the flags."""
     digest = hashlib.sha256()
-    digest.update((CSRC_DIR / f"{name}.cu").read_bytes())
+    for src in [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]:
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build(names) -> None:
+    """Build every library of ``names`` that is missing, one nvcc each, all
+    started together; raises if any build fails."""
+    jobs = []
+    nvcc = None
+    for name in names:
+        so = library_path(name)
+        if so.exists():
+            continue
+        nvcc = nvcc or find_nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        # build under a private name and rename: concurrent first uses in
+        # several processes never load a half-written library
+        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True)
+        jobs.append((name, so, tmp, cmd, proc))
+    failures = []
+    for name, so, tmp, cmd, proc in jobs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failures.append(f"nvcc failed to build {name}.cu (exit {proc.returncode}):\n"
+                            f"{' '.join(cmd)}\n{out}")
+        else:
+            os.replace(tmp, so)
+    if failures:
+        raise RuntimeError("\n".join(failures))
 
 
 def load_library(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` if its library is missing, load it once."""
     if name in _loaded:
         return _loaded[name]
-    so = library_path(name)
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        # build under a private name and rename: concurrent first uses in
-        # several processes never load a half-written library
-        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC_DIR / f"{name}.cu")]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"nvcc failed to build {name}.cu (exit {proc.returncode}):\n"
-                f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+    build([name])
+    lib = ctypes.CDLL(str(library_path(name)))
     lib.vqt_cuda_error_string.argtypes = [ctypes.c_int]
     lib.vqt_cuda_error_string.restype = ctypes.c_char_p
     _loaded[name] = lib

@@ -1,5 +1,5 @@
-"""Nearest-neighbour code assignment, the VQ hot op
-(counterpart of ``vqvae_tpu/ops/vq.py:48-96``).
+"""Nearest-neighbour code assignment, the VQ hot op, and its fused form with
+the EMA update statistics (counterpart of ``vqvae_tpu/ops/vq.py:48-162``).
 
 ``|x|^2`` is constant across codes, so the argmin needs only
 ``|c|^2 - 2 x c^T``. A CPU tensor goes to the plain PyTorch version; a CUDA
@@ -10,6 +10,7 @@ build or launch raises: there is no fallback for CUDA tensors.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def nearest_codes_reference(flat_x: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
@@ -40,6 +41,37 @@ def nearest_codes(flat_x: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
 
 
 nearest_codes.launches = 0
+
+
+def nearest_codes_stats_reference(flat_x: torch.Tensor, codebook: torch.Tensor):
+    """Plain version of B2: (M, D), (N, D) -> (codes (M,) int32, counts (N,)
+    fp32, dw (N, D) fp32) with counts[n] = #{m: codes[m] = n} and dw[n] the
+    sum of the rows assigned to n; the formula of
+    ``vqvae_tpu.ops.vq._nearest_codes_stats_xla`` (``one_hot(codes).T @ x``)."""
+    codes = nearest_codes_reference(flat_x, codebook)
+    onehot = F.one_hot(codes.long(), codebook.shape[0]).float()
+    return codes, onehot.sum(0), onehot.T @ flat_x.float()
+
+
+def nearest_codes_stats(flat_x: torch.Tensor, codebook: torch.Tensor):
+    """Nearest-code assignment fused with the EMA codebook-update statistics
+    (counterpart of ``vqvae_tpu/ops/vq.py:129-162``): (M, D), (N, D) ->
+    (codes (M,) int32, counts (N,) fp32, dw (N, D) fp32). Not differentiable:
+    counts and dw feed the EMA buffers.
+
+    CPU tensors take ``nearest_codes_stats_reference``; CUDA tensors always
+    take kernel B2 (``vq_cuda.nearest_codes_stats_cuda``), whose wrapper adds
+    one to ``nearest_codes_stats.launches`` after each launch that succeeded.
+    """
+    flat_x = flat_x.detach()
+    codebook = codebook.detach()
+    if flat_x.device.type == "cpu" and codebook.device.type == "cpu":
+        return nearest_codes_stats_reference(flat_x, codebook)
+    from vqvae_tpu_torch.ops import vq_cuda
+    return vq_cuda.nearest_codes_stats_cuda(flat_x.contiguous(), codebook.contiguous())
+
+
+nearest_codes_stats.launches = 0
 
 
 NEAR_TIE_RTOL = 1e-4

@@ -1,17 +1,22 @@
-"""Where the device time of the tokenizer API goes, on one CUDA card.
+"""Where the device time of the tokenizer API and of the EMA training step
+goes, on one CUDA card.
 
     python -m vqvae_tpu_torch.profile_tokenizer
 
-Builds ``VQVAE`` from ``example_confs/standard_vqvae.yaml`` at full width
-with seeded random weights, in fp32 and in bf16, with TF32 off as in
-``chip_smoke.py``. For each of ``get_tokens``, ``reconstruct_from_tokens``
-and ``reconstruct`` at batch ``BATCH`` it makes ``WARMUP`` calls, then
-records ``CALLS`` calls in one ``torch.profiler`` window. Per call it prints:
+Builds ``VQVAE`` from ``example_confs/standard_vqvae.yaml`` and a
+``Trainer`` from ``example_confs/ema_vqvae.yaml`` at full width with seeded
+random weights, in fp32 and in bf16, with TF32 off as in ``chip_smoke.py``.
+For each of ``get_tokens``, ``reconstruct_from_tokens``, ``reconstruct`` and
+``train_step`` (augmentations on, as ``train.py`` runs it) at batch
+``BATCH`` it makes ``WARMUP`` calls, then records ``CALLS`` calls in one
+``torch.profiler`` window. Per call it prints:
 
 - ``window``: the time between two CUDA events around the window;
 - ``kernels``: the summed device time of every kernel, memcpy and memset
-  the profiler saw in the window (one stream, so they do not overlap);
-- ``idle``: ``1 - kernels / window``, the share of the window the card was
+  the profiler saw in the window;
+- ``busy``: the time at least one of them ran (cuDNN's backward runs some
+  kernels side by side on streams of its own, so ``kernels`` can exceed it);
+- ``idle``: ``1 - busy / window``, the share of the window the card was
   idle, with the profiler on;
 - the kernel time by kind (``KINDS``, matched on the kernel's name), then
   the ``TOP`` kernels by time.
@@ -30,7 +35,9 @@ from pathlib import Path
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-CONFIG = Path(__file__).resolve().parent.parent / "example_confs" / "standard_vqvae.yaml"
+CONFIGS = Path(__file__).resolve().parent.parent / "example_confs"
+CONFIG = CONFIGS / "standard_vqvae.yaml"
+TRAIN_CONFIG = CONFIGS / "ema_vqvae.yaml"
 SEED = 0
 BATCH = 32
 WARMUP = 2
@@ -39,7 +46,11 @@ TOP = 10
 
 # (kind, substrings of the kernel name); the first kind that matches wins
 KINDS = (
+    ("B2 nearest_codes_stats", ("nearest_codes_stats",)),
     ("B1 nearest_codes", ("nearest_codes",)),
+    ("optimizer", ("multi_tensor_apply", "adam")),
+    ("conv wgrad", ("wgrad",)),
+    ("conv dgrad", ("dgrad",)),
     ("conv fft", ("fft", "pointwise_mult_and_sum_complex")),
     ("conv layout", ("nchwtonhwc", "nhwctonchw")),
     ("conv gemm", ("xmma", "gemm", "cudnn", "conv", "cutlass")),
@@ -61,8 +72,19 @@ def device_events(prof) -> list:
     return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
+def busy_ms(intervals) -> float:
+    """Length of the union of (start, end) intervals, in their unit / 1000."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1000
+
+
 def profile_call(fn):
-    """-> (window ms, {kernel name: (count, total ms)}) for ``CALLS`` calls."""
+    """-> (window ms, busy ms, {kernel name: (count, total ms)}) for
+    ``CALLS`` calls."""
     for _ in range(WARMUP):
         fn()
     torch.cuda.synchronize()
@@ -75,22 +97,25 @@ def profile_call(fn):
         end.record()
         torch.cuda.synchronize()
     per_kernel = defaultdict(lambda: [0, 0.0])
-    for e in device_events(prof):
+    events = device_events(prof)
+    for e in events:
         per_kernel[e.name][0] += 1
         per_kernel[e.name][1] += e.time_range.elapsed_us() / 1000
-    return start.elapsed_time(end), dict(per_kernel)
+    busy = busy_ms((e.time_range.start, e.time_range.end) for e in events)
+    return start.elapsed_time(end), busy, dict(per_kernel)
 
 
-def report(label: str, window_ms: float, per_kernel: dict, card: str) -> None:
+def report(label: str, window_ms: float, busy: float, per_kernel: dict, card: str) -> None:
     by_kind = defaultdict(float)
     for name, (_, ms) in per_kernel.items():
         by_kind[kind_of(name)] += ms / CALLS
     kernels = sum(by_kind.values())
     window = window_ms / CALLS
+    busy /= CALLS
     kinds = ", ".join(f"{k} {ms:.2f} ms" for k, ms in sorted(by_kind.items(),
                                                              key=lambda kv: -kv[1]))
     print(f"== {label} [{card}]: window {window:.2f} ms/call, kernels {kernels:.2f} ms/call, "
-          f"idle {1 - kernels / window:.3f}; {kinds}")
+          f"busy {busy:.2f} ms/call, idle {1 - busy / window:.3f}; {kinds}")
     for name, (count, ms) in sorted(per_kernel.items(), key=lambda kv: -kv[1][1])[:TOP]:
         print(f"  {ms / CALLS:9.2f} ms {count // CALLS:4d}x  {kind_of(name):16s} {name[:110]}")
 
@@ -100,6 +125,7 @@ def main() -> None:
         sys.exit("profile_tokenizer: no CUDA device is visible")
 
     from vqvae_tpu_torch import VQVAE, load_config
+    from vqvae_tpu_torch.train.loop import Trainer
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -120,9 +146,19 @@ def main() -> None:
                          ("reconstruct_from_tokens",
                           lambda: model.reconstruct_from_tokens(tokens)),
                          ("reconstruct", lambda: model.reconstruct(images))):
-            window_ms, per_kernel = profile_call(fn)
             report(f"{name} {str(dtype).removeprefix('torch.')} batch {BATCH}",
-                   window_ms, per_kernel, card)
+                   *profile_call(fn), card)
+        del model
+
+    train_cfg = load_config(str(TRAIN_CONFIG))
+    batch = {"image": torch.rand(BATCH, size, size, 3, device=device, generator=gen)}
+    for dtype in (torch.float32, torch.bfloat16):
+        trainer = Trainer(train_cfg, learning_rate=train_cfg.training.scaled_lr(), seed=SEED,
+                          steps_per_epoch=1000, compute_dtype=dtype, device=device)
+        state = trainer.init_state()
+        report(f"train_step ema {str(dtype).removeprefix('torch.')} batch {BATCH}",
+               *profile_call(lambda: trainer.train_step(state, batch)), card)
+        del state
 
 
 if __name__ == "__main__":

@@ -5,8 +5,10 @@ Layout mapping (the JAX package is NHWC, the port NCHW):
 - flax kernel (kh, kw, I, O)  ->  Conv2d weight (O, I, kh, kw)
 - GroupNorm scale / bias (C,)  ->  weight / bias (1, C, 1, 1)
 - codebook (N, D)  ->  quantizer.codebook.weight (N, D) unchanged
+- EMA ``vq_state`` codebook, ema_count, ema_weight  ->  quantizer buffers of the
+  same names, unchanged
 
-Takes the variables as numpy arrays (``{'params': {...}}``).
+Takes the variables as numpy arrays (``{'params': {...}[, 'vq_state': {...}]}``).
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import torch
 
 
 def _t(a) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(a, dtype=np.float32)))
+    return torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
 
 
 def _key(prefix: str, name: str) -> str:
@@ -87,9 +89,17 @@ def convert_decoder(p: dict, num_res_blocks: int, num_levels: int,
 
 def convert_vqvae_variables(variables: dict, num_res_blocks: int,
                             num_levels: int) -> Dict[str, torch.Tensor]:
-    """Standard-VQ flax VQVAE variables -> port VQVAE state_dict, to load
-    with ``load_state_dict(strict=True)``."""
+    """Standard- or EMA-VQ flax VQVAE variables -> port VQVAE state_dict, to
+    load with ``load_state_dict(strict=True)``. The EMA quantizer's codebook
+    and accumulators come from the ``vq_state`` collection."""
     params = variables["params"]
-    return {**convert_encoder(params["encoder"], num_res_blocks, num_levels),
-            **convert_decoder(params["decoder"], num_res_blocks, num_levels),
-            "quantizer.codebook.weight": _t(params["quantizer"]["codebook"])}
+    sd = {**convert_encoder(params["encoder"], num_res_blocks, num_levels),
+          **convert_decoder(params["decoder"], num_res_blocks, num_levels)}
+    if "vq_state" in variables:
+        q = variables["vq_state"]["quantizer"]
+        sd.update({"quantizer.codebook.weight": _t(q["codebook"]),
+                   "quantizer.ema_count": _t(q["ema_count"]),
+                   "quantizer.ema_weight": _t(q["ema_weight"])})
+    else:
+        sd["quantizer.codebook.weight"] = _t(params["quantizer"]["codebook"])
+    return sd
