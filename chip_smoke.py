@@ -28,9 +28,26 @@ exit and no result line:
    (16 of B2, none of B1); the EMA buffers after the first fp32 step held
    against a plain recomputation from that step's encoder latents; then
    ``eval_step`` and ``get_tokens`` on the trained model (B1);
-7. times: CUDA events, warm-up, median of 5 windows: B1 and B2 against
+7. B3 and B4 vs plain: the discriminator's fused-backward kernels against
+   ``blur_t_gate_reference`` / ``skip_fanout_bwd_reference`` at every block
+   shape of the 256^2 D at batch 32 and at ragged shapes, fp32 and bf16:
+   fp32 within ``FP32_SHARE`` of the sum of the absolute terms, bf16 within
+   one bf16 ulp of the fp32 value, db0 within ``DB_SHARE`` of a float64
+   sum, two launches bit-identical;
+8. GAN slice: ``Trainer(gumbel_vqgan.yaml, fused_dbwd=True,
+   fused_skip=True)`` at full width (the whole D, LPIPS-VGG with seeded
+   random weights unless the converted .npz is present), one fixed batch of
+   32, ``epoch=start_epoch`` so the GAN is active: 4 bf16 steps then 4 fp32
+   steps (host step 0 is an R1 step), every metric finite, R1 > 0 on the R1
+   step only, B3 and B4 launched 12 times on the R1 step and 18 on the
+   others, B1 and B2 never; then one non-R1 fp32 step's autoencoder and D
+   gradients, fused against plain, within ``GRAD_SHARE`` of each tensor's
+   largest entry (or of 1e-3 of the module's, if that is larger); ``eval_step`` with the GAN active; peak memory;
+9. times: CUDA events, warm-up, median of 5 windows: B1 and B2 against
    their plain versions and a PyTorch composition, the tokenizer calls, the
-   train step.
+   train step; B3 and B4 at the first block's shape against theirs; the GAN
+   step, R1 and not, fused and plain, in bf16 and fp32 (3 windows after a
+   warm-up for a non-R1 step, 1 window for an R1 step).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a visible CUDA device it exits
@@ -52,7 +69,8 @@ import torch
 from vqvae_tpu_torch import load_config
 from vqvae_tpu_torch.models.preprocess import preprocess_batch
 from vqvae_tpu_torch.models.vqvae import VQVAE
-from vqvae_tpu_torch.ops import _build, vq_cuda
+from vqvae_tpu_torch.ops import _build, fused_dbwd, fused_dbwd_cuda, vq_cuda
+from vqvae_tpu_torch.ops.upfirdn2d import upfirdn2d
 from vqvae_tpu_torch.ops.vq import (code_mismatches, nearest_codes, nearest_codes_reference,
                                     nearest_codes_stats, nearest_codes_stats_reference)
 from vqvae_tpu_torch.train.loop import Trainer
@@ -60,6 +78,7 @@ from vqvae_tpu_torch.train.loop import Trainer
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "example_confs" / "standard_vqvae.yaml"
 TRAIN_CONFIG = ROOT / "example_confs" / "ema_vqvae.yaml"
+GAN_CONFIG = ROOT / "example_confs" / "gumbel_vqgan.yaml"
 SEED = 0
 KERNEL_SHAPES = [(8192, 1024, 256), (256, 1024, 256), (1000, 37, 8), (4097, 1024, 256)]
 STATS_SHAPES = [(8192, 4096, 256), (256, 4096, 256), (1000, 37, 8), (4097, 1024, 256)]
@@ -72,6 +91,16 @@ TIMED_BATCH = 32
 TRAIN_BATCH = 32
 TRAIN_STEPS = 8             # per precision
 STEPS_PER_EPOCH = 1000      # the LR schedule's epoch; the smoke run stays in epoch 0
+# B3 / B4: (C, H=W) of the 256^2 D's blocks, at DBWD_BATCH; ragged (B, C, H, W)
+DBWD_BLOCKS = [(128, 256), (256, 128), (512, 64), (512, 32), (512, 16), (512, 8)]
+DBWD_RAGGED = [(1, 3, 7, 9), (1, 37, 33, 17), (1, 130, 15, 31)]
+DBWD_BATCH = 32
+FP32_SHARE = 2e-6           # fp32: |kernel - plain| <= FP32_SHARE * sum of |terms|
+BF16_ULP = 2.0 ** -7        # bf16: within one bf16 ulp of the fp32 value
+DB_SHARE = 1e-5             # |db0 - float64 sum| <= DB_SHARE * sum of |dp0| per channel
+GAN_BATCH = 32
+GAN_STEPS = 4               # per precision
+GRAD_SHARE = 1e-4           # fused vs plain gradients, share of each tensor's largest entry
 # published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): fp32 on the
 # CUDA cores, and device memory
 FP32_FLOPS = 67e12
@@ -122,12 +151,13 @@ def bound(flops: float, nbytes: float):
 
 
 def phase_build() -> None:
-    names = ("nearest_codes", "nearest_codes_stats")
+    names = ("nearest_codes", "nearest_codes_stats", "fused_dbwd")
     fresh = [n for n in names if not _build.library_path(n).exists()]
     t0 = time.perf_counter()
     _build.build(names)
     vq_cuda.library()
     vq_cuda.stats_library()
+    fused_dbwd_cuda.library()
     print(f"build: {', '.join(f'{n}.cu' for n in names)}: {len(fresh)} built, in parallel, "
           f"in {time.perf_counter() - t0:.2f} s -> "
           f"{', '.join(str(_build.library_path(n).relative_to(ROOT)) for n in names)}")
@@ -397,13 +427,13 @@ def phase_train(cfg, device, card: str):
     return b1, b2
 
 
-def _turns(fns: dict, reps: int) -> dict:
+def _turns(fns: dict, reps: int, windows: int = 5, warmup: int = 2) -> dict:
     """Median ms of each function, timed in turns a, b, ..., ..., b, a so that
     every side sees the same card state; -> {name: (mean ms, [window ms])}."""
     order = list(fns) + list(reversed(fns))
     times = {k: [] for k in fns}
     for k in order:
-        times[k].append(cuda_ms(fns[k], reps=reps))
+        times[k].append(cuda_ms(fns[k], reps=reps, windows=windows, warmup=warmup))
     return {k: (statistics.mean(v), v) for k, v in times.items()}
 
 
@@ -471,6 +501,284 @@ def phase_times(cfg, model, device, card: str):
     return b1, b2
 
 
+def _blur_t(x):
+    """The plain version's blur-transpose (B3's first half) of an fp32 tensor."""
+    t = torch.tensor(fused_dbwd.TAPS)
+    return upfirdn2d(x, torch.outer(t, t).numpy(), padding=1, flip_filter=True)
+
+
+def _check_b3(dy, p0, b0, what: str) -> float:
+    """B3 against the plain version on the same inputs; returns max |dp0 - plain|."""
+    alpha, gain = 0.2, math.sqrt(2)
+    dp, db = fused_dbwd_cuda.blur_t_gate_cuda(dy, p0, b0, fused_dbwd.TAPS, alpha, gain)
+    # blur_t_gate_reference's arithmetic in fp32 (for bf16, before its last
+    # rounding): the gate from p0 + b0 summed in p0's dtype
+    s = p0 + b0.to(p0.dtype)[None, :, None, None]
+    gate = torch.where(s >= 0, gain, gain * alpha).float()
+    del s
+    plain = _blur_t(dy.float()) * gate
+    err = (dp.float() - plain).abs()
+    terms = _blur_t(dy.float().abs()) * gate
+    if dp.dtype == torch.float32:
+        share = float((err / (FP32_SHARE * terms + 1e-30)).max())
+    else:
+        share = float((err / (BF16_ULP * plain.abs() + FP32_SHARE * terms + 1e-30)).max())
+    max_err = float(err.max())
+    del err, terms, gate
+    db_exact = plain.double().sum((0, 2, 3))
+    db_share = float(((db.double() - db_exact).abs()
+                      / (DB_SHARE * plain.double().abs().sum((0, 2, 3)) + 1e-30)).max())
+    again = fused_dbwd_cuda.blur_t_gate_cuda(dy, p0, b0, fused_dbwd.TAPS, alpha, gain)
+    same = torch.equal(dp, again[0]) and torch.equal(db, again[1])
+    print(f"{what}: max |dp0 - plain| {max_err:.3e} (worst share of the limit {share:.3f}), "
+          f"db0 vs float64 sum worst share {db_share:.3f}, second launch "
+          f"{'bit-identical' if same else 'DIFFERENT'}")
+    check(share <= 1 and db_share <= 1 and same, what)
+    return max_err
+
+
+def _check_b4(dc, dys, what: str) -> float:
+    """B4 against the plain version on the same inputs; returns max |out - plain|."""
+    out = fused_dbwd_cuda.skip_fanout_bwd_cuda(dc, dys, fused_dbwd.TAPS)
+    plain = fused_dbwd.skip_fanout_bwd_reference(dc.float(), dys.float(), fused_dbwd.TAPS)
+    terms = dc.float().abs() + fused_dbwd.skip_fanout_bwd_reference(
+        torch.zeros_like(plain), dys.float().abs(), fused_dbwd.TAPS)
+    err = (out.float() - plain).abs()
+    limit = FP32_SHARE * terms + (BF16_ULP * plain.abs() if out.dtype == torch.bfloat16
+                                  else 0.0)
+    share = float((err / (limit + 1e-30)).max())
+    same = torch.equal(out, fused_dbwd_cuda.skip_fanout_bwd_cuda(dc, dys, fused_dbwd.TAPS))
+    print(f"{what}: max |out - plain| {float(err.max()):.3e} (worst share of the limit "
+          f"{share:.3f}), second launch {'bit-identical' if same else 'DIFFERENT'}")
+    check(share <= 1 and same, what)
+    return float(err.max())
+
+
+def phase_dbwd_kernels(device):
+    """B3 and B4 against their plain versions at the D's block shapes and at
+    ragged ones, fp32 and bf16. Returns (B3 max error, B4 max error)."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    shapes = [(DBWD_BATCH, c, h, h) for c, h in DBWD_BLOCKS] + DBWD_RAGGED
+    b3_err = b4_err = 0.0
+    for b, c, h, w in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).removeprefix("torch.")
+            dy = torch.randn(b, c, h + 1, w + 1, device=device, generator=gen).to(dtype)
+            p0 = torch.randn(b, c, h, w, device=device, generator=gen).to(dtype)
+            b0 = 0.1 * torch.randn(c, device=device, generator=gen)
+            b3_err = max(b3_err, _check_b3(dy, p0, b0, f"B3 vs plain ({b},{c},{h},{w}) {name}"))
+            del dy, p0
+            dc = torch.randn(b, c, h, w, device=device, generator=gen).to(dtype)
+            dys = torch.randn(b, c, h // 2, w // 2, device=device, generator=gen).to(dtype)
+            b4_err = max(b4_err, _check_b4(dc, dys, f"B4 vs plain ({b},{c},{h},{w}) {name}"))
+            del dc, dys
+            torch.cuda.empty_cache()
+    return b3_err, b4_err
+
+
+def _dbwd_counts():
+    return fused_dbwd.blur_t_gate.launches, fused_dbwd.skip_fanout_bwd.launches
+
+
+def _reset_counts():
+    nearest_codes.launches = nearest_codes_stats.launches = 0
+    fused_dbwd.blur_t_gate.launches = fused_dbwd.skip_fanout_bwd.launches = 0
+
+
+def _grad_shares(a: dict, b: dict) -> dict:
+    """Per tensor: max |a - b| over max |b|, that at least 1e-3 of the module's
+    largest gradient entry (a bias just before a GroupNorm has a gradient
+    that is 0 but for rounding)."""
+    floor = 1e-3 * max(float(v.abs().max()) for v in b.values())
+    return {k: float((a[k] - b[k]).abs().max()) / max(float(b[k].abs().max()), floor)
+            for k in b}
+
+
+def phase_gan(cfg, device, card: str):
+    """The GAN slice: 4 bf16 + 4 fp32 full-width steps with the fused D
+    backward, the composed-step A/B, eval_step. Returns (B3 launches, B4
+    launches, the bf16 and fp32 trainers and states)."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 6)
+    size = cfg.image_size
+    batch = {"image": torch.rand(GAN_BATCH, size, size, 3, device=device, generator=gen)}
+    adv = cfg.loss.adversarial
+    epoch = adv.start_epoch
+    lr = cfg.training.scaled_lr()
+    n_blocks = len(range(int(math.log2(size)), 2, -1))
+    runs = {}
+    _reset_counts()
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).removeprefix("torch.")
+        trainer = Trainer(cfg, learning_rate=lr, seed=SEED, steps_per_epoch=STEPS_PER_EPOCH,
+                          compute_dtype=dtype, device=device, fused_dbwd=True, fused_skip=True)
+        state = trainer.init_state()
+        check(trainer.gan_active(epoch) and not trainer.gan_active(epoch - 1),
+              f"gan slice {name}: the GAN starts at epoch {epoch}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        history, per_step = [], []
+        for i in range(GAN_STEPS):
+            before = _dbwd_counts()
+            state, metrics = trainer.train_step(state, batch, epoch=epoch)
+            torch.cuda.synchronize()
+            after = _dbwd_counts()
+            per_step.append((after[0] - before[0], after[1] - before[1]))
+            history.append({k: float(v) for k, v in metrics.items()})
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(all(math.isfinite(v) for m in history for v in m.values()),
+              f"gan slice {name}: every metric finite")
+        r1 = [m["r1_penalty"] for m in history]
+        check(r1[0] > 0 and all(v == 0 for v in r1[1:]),
+              f"gan slice {name}: r1_penalty > 0 on the R1 step (host step 0) only")
+        want = [(2 * n_blocks,) * 2] + [(3 * n_blocks,) * 2] * (GAN_STEPS - 1)
+        check(per_step == want, f"gan slice {name}: B3/B4 launches per step {per_step}, "
+              f"expected {want}")
+        print(f"gan slice {name}: {GAN_STEPS} steps at batch {GAN_BATCH}, epoch {epoch}, lr "
+              f"{history[0]['lr']:.6g}; loss " + " ".join(f"{m['loss']:.5f}" for m in history)
+              + "; gen_loss " + " ".join(f"{m['gen_loss']:.5f}" for m in history)
+              + "; disc_loss " + " ".join(f"{m['disc_loss']:.5f}" for m in history)
+              + "; r1_penalty " + " ".join(f"{v:.5g}" for v in r1)
+              + f"; perc_loss {history[0]['perc_loss']:.5f}; B3/B4 launches per step "
+              f"{[a for a, _ in per_step]} (R1 step: {2 * n_blocks} = {n_blocks} blocks x 2 "
+              f"fake-logit backward passes; others: {3 * n_blocks}, the real logits' too); "
+              f"peak memory {peak:.2f} GiB [{card}]")
+        runs[dtype] = (trainer, state)
+    b3, b4 = _dbwd_counts()
+    check(nearest_codes.launches == 0 and nearest_codes_stats.launches == 0,
+          "the GAN path launched neither nearest_codes nor nearest_codes_stats")
+    check(b3 > 0 and b4 > 0, "the GAN path launched B3 and B4")
+    print(f"gan slice: {2 * GAN_STEPS} train steps launched blur_t_gate {b3} times, "
+          f"skip_fanout_bwd {b4} times, nearest_codes 0, nearest_codes_stats 0")
+
+    # the composed-program check: one non-R1 fp32 step from the same weights,
+    # batch and noise, fused against plain
+    grads = {}
+    for fused in (True, False):
+        trainer = Trainer(cfg, learning_rate=lr, seed=SEED, steps_per_epoch=STEPS_PER_EPOCH,
+                          device=device, fused_dbwd=fused, fused_skip=fused)
+        state = trainer.init_state()
+        trainer.host_step = 1                      # not an R1 step
+        before = _dbwd_counts()
+        _, metrics = trainer.train_step(state, batch, epoch=epoch)
+        torch.cuda.synchronize()
+        after = _dbwd_counts()
+        grads[fused] = ({k: p.grad for k, p in state.model.named_parameters()},
+                        {k: p.grad for k, p in state.disc.named_parameters()},
+                        {k: float(v) for k, v in metrics.items()}, after[0] - before[0])
+        del trainer, state
+    (ae_f, d_f, m_f, n_f), (ae_p, d_p, m_p, n_p) = grads[True], grads[False]
+    check(n_f == 3 * n_blocks and n_p == 0, "A/B: the fused step launched B3, the plain one not")
+    ae_share, d_share = _grad_shares(ae_f, ae_p), _grad_shares(d_f, d_p)
+    worst_ae = max(ae_share, key=ae_share.get)
+    worst_d = max(d_share, key=d_share.get)
+    print(f"gan A/B fp32 non-R1 step, fused vs plain on the same weights and batch: loss "
+          f"{m_f['loss']:.7f} vs {m_p['loss']:.7f}, disc_loss {m_f['disc_loss']:.7f} vs "
+          f"{m_p['disc_loss']:.7f}; worst autoencoder gradient share {ae_share[worst_ae]:.3e} "
+          f"({worst_ae}), worst D gradient share {d_share[worst_d]:.3e} ({worst_d}); limit "
+          f"{GRAD_SHARE} of each tensor's largest entry")
+    check(ae_share[worst_ae] <= GRAD_SHARE and d_share[worst_d] <= GRAD_SHARE,
+          "A/B: fused gradients equal the plain ones inside the composed step")
+    del grads, ae_f, d_f, ae_p, d_p
+    torch.cuda.empty_cache()
+
+    trainer, state = runs[torch.float32]
+    mask = torch.ones(GAN_BATCH, dtype=torch.bool, device=device)
+    mask[-4:] = False
+    metrics, usage, recon = trainer.eval_step(state, {"image": batch["image"], "mask": mask},
+                                              epoch=epoch)
+    torch.cuda.synchronize()
+    n_valid = int(mask.sum())
+    check(all(math.isfinite(float(v)) for v in metrics.values())
+          and int(metrics["n_valid"]) == n_valid
+          and int(usage.sum()) == n_valid * cfg.latent_size ** 2
+          and recon.shape == batch["image"].shape
+          and float(metrics["gen_loss"]) > 0 and float(metrics["disc_loss"]) > 0,
+          "gan eval_step: finite metrics, G and D losses, masked usage")
+    print(f"gan eval_step fp32: {{{', '.join(f'{k}: {float(v):.5f}' for k, v in metrics.items())}}}")
+    return b3, b4, runs, batch
+
+
+def phase_gan_times(cfg, runs, batch, card: str) -> None:
+    """The GAN step, R1 and not, with the fused D backward and without, in turns."""
+    epoch = cfg.loss.adversarial.start_epoch
+    every = cfg.loss.adversarial.r1_reg_every
+    for dtype, (trainer, state) in runs.items():
+        name = str(dtype).removeprefix("torch.")
+        for r1 in (False, True):
+            def step(fused, r1=r1, trainer=trainer, state=state):
+                def fn():
+                    state.disc.set_fused(fused, fused)
+                    trainer.host_step = 0 if r1 else 1
+                    trainer.train_step(state, batch, epoch=epoch)
+                return fn
+            # an R1 step takes ~30x a plain one (PERF.md): one window each, no
+            # warm-up (phase_gan has run one already), to keep the script short
+            t = _turns({"plain": step(False), "fused": step(True)}, reps=1,
+                       windows=1 if r1 else 3, warmup=0 if r1 else 1)
+            kind = "R1" if r1 else "non-R1"
+            print(f"time [{card}]: gan train_step {kind} {name} batch {GAN_BATCH}: fused D "
+                  f"backward {t['fused'][0]:.2f} ms ({GAN_BATCH * 1000 / t['fused'][0]:.1f} "
+                  f"images/s; windows {', '.join(f'{v:.2f}' for v in t['fused'][1])}), plain "
+                  f"{t['plain'][0]:.2f} ms ({GAN_BATCH * 1000 / t['plain'][0]:.1f} images/s; "
+                  f"windows {', '.join(f'{v:.2f}' for v in t['plain'][1])}); one R1 step every "
+                  f"{every}")
+        state.disc.set_fused(True, True)
+
+
+def phase_dbwd_times(device, card: str) -> dict:
+    """B3 and B4 at the first block's shape (batch 32, C 128, 256^2), fp32 and
+    bf16: kernel, plain version, one PyTorch composition, bound by bytes."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    c, h = DBWD_BLOCKS[0]
+    b, w = DBWD_BATCH, h
+    alpha, gain = 0.2, math.sqrt(2)
+    t4 = torch.tensor(fused_dbwd.TAPS, device=device)
+    f2d = torch.outer(t4, t4)
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        size = torch.finfo(dtype).bits // 8
+        dy = torch.randn(b, c, h + 1, w + 1, device=device, generator=gen).to(dtype)
+        p0 = torch.randn(b, c, h, w, device=device, generator=gen).to(dtype)
+        b0 = torch.randn(c, device=device, generator=gen)
+        wdw = f2d.to(dtype)[None, None].expand(c, 1, 4, 4).contiguous()
+
+        def library_b3():
+            da = torch.nn.functional.conv2d(dy, wdw, padding=1, groups=c)
+            s = p0 + b0.to(dtype)[None, :, None, None]
+            dp = da * torch.where(s >= 0, gain, gain * alpha).to(dtype)
+            return dp, dp.float().sum((0, 2, 3))
+
+        t = _turns({"plain": lambda: fused_dbwd.blur_t_gate_reference(dy, p0, b0),
+                    "kernel": lambda: fused_dbwd_cuda.blur_t_gate_cuda(
+                        dy, p0, b0, fused_dbwd.TAPS, alpha, gain),
+                    "library": library_b3}, reps=10)
+        n = b * c * h * w
+        b_ms, b_by = bound(19 * n, size * (b * c * (h + 1) * (w + 1) + 2 * n) + 8 * c)
+        rows[("B3", dtype)] = {k: v[0] for k, v in t.items()} | {"bound": b_ms, "bound_by": b_by}
+        print(f"time [{card}]: blur_t_gate ({b},{c},{h},{w}) {name} kernel {t['kernel'][0]:.4f} "
+              f"ms (windows {t['kernel'][1][0]:.4f}, {t['kernel'][1][1]:.4f}), plain "
+              f"{t['plain'][0]:.4f} ms, depthwise conv2d + where + sum {t['library'][0]:.4f} ms; "
+              f"bound {b_ms:.4f} ms ({b_by})")
+        del dy, p0
+        dc = torch.randn(b, c, h, w, device=device, generator=gen).to(dtype)
+        dys = torch.randn(b, c, h // 2, w // 2, device=device, generator=gen).to(dtype)
+        t = _turns({"plain": lambda: fused_dbwd.skip_fanout_bwd_reference(dc, dys),
+                    "kernel": lambda: fused_dbwd_cuda.skip_fanout_bwd_cuda(
+                        dc, dys, fused_dbwd.TAPS),
+                    "library": lambda: dc + torch.nn.functional.conv_transpose2d(
+                        dys, wdw, stride=2, padding=1, groups=c)}, reps=10)
+        b_ms, b_by = bound(13 * n, size * (2 * n + n // 4))
+        rows[("B4", dtype)] = {k: v[0] for k, v in t.items()} | {"bound": b_ms, "bound_by": b_by}
+        print(f"time [{card}]: skip_fanout_bwd ({b},{c},{h},{w}) {name} kernel "
+              f"{t['kernel'][0]:.4f} ms (windows {t['kernel'][1][0]:.4f}, "
+              f"{t['kernel'][1][1]:.4f}), plain {t['plain'][0]:.4f} ms, conv_transpose2d + add "
+              f"{t['library'][0]:.4f} ms; bound {b_ms:.4f} ms ({b_by})")
+        del dc, dys
+        torch.cuda.empty_cache()
+    return rows
+
+
 def _record(name, source, replaces, launches, max_abs_err, shape, t) -> dict:
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": max_abs_err, "ms": t["kernel"],
@@ -482,6 +790,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is visible; this script runs only on a GPU")
     device = torch.device("cuda", 0)
+    t0 = time.perf_counter()
     card = phase_device()
     phase_build()
     kernel_gap = phase_kernel(device)
@@ -490,7 +799,16 @@ def main() -> None:
     stats_err = phase_stats_kernel(device)
     train_cfg = load_config(str(TRAIN_CONFIG))
     b1_train, b2_train = phase_train(train_cfg, device, card)
+    b3_err, b4_err = phase_dbwd_kernels(device)
+    gan_cfg = load_config(str(GAN_CONFIG))
+    b3_gan, b4_gan, gan_runs, gan_batch = phase_gan(gan_cfg, device, card)
     b1, b2 = phase_times(cfg, model, device, card)
+    phase_gan_times(gan_cfg, gan_runs, gan_batch, card)
+    del gan_runs
+    torch.cuda.empty_cache()
+    dbwd = phase_dbwd_times(device, card)
+    b256 = (DBWD_BATCH, DBWD_BLOCKS[0][0], DBWD_BLOCKS[0][1], DBWD_BLOCKS[0][1])
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [
         # launches: the tokenizer path's plus the training path's; max_abs_err:
         # the largest float64 score gap between the kernel's and the plain
@@ -501,6 +819,16 @@ def main() -> None:
         # max_abs_err: the largest |dw - dw_plain| over the compared shapes
         _record("nearest_codes_stats", "vqvae_tpu_torch/csrc/nearest_codes_stats.cu",
                 "vqvae_tpu/ops/vq_pallas.py:89", b2_train, stats_err, STATS_SHAPES[0], b2),
+        # launches: the GAN path's 8 train steps; max_abs_err: the largest
+        # |kernel - plain| over every compared shape, fp32 and bf16 (bf16 is
+        # one bf16 ulp); times at the first block's shape in bf16, the
+        # training compute dtype
+        _record("blur_t_gate", "vqvae_tpu_torch/csrc/fused_dbwd.cu",
+                "vqvae_tpu/ops/fused_dbwd.py:220", b3_gan, b3_err, b256,
+                dbwd[("B3", torch.bfloat16)]) | {"dtype": "bfloat16"},
+        _record("skip_fanout_bwd", "vqvae_tpu_torch/csrc/fused_dbwd.cu",
+                "vqvae_tpu/ops/fused_dbwd.py:386", b4_gan, b4_err, b256,
+                dbwd[("B4", torch.bfloat16)]) | {"dtype": "bfloat16"},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -62,10 +62,13 @@ def test_config_parser_equals_the_jax_packages(path):
         want["autoencoder"]["channel_multipliers"])
 
 
-def test_entry_points_ask_for_the_card_by_default(monkeypatch):
-    """Without ``device`` the model and the Trainer go to CUDA; here the move
-    is recorded, not made, so the test runs without a card."""
+def test_entry_points_ask_for_the_card_by_default(monkeypatch, tmp_path):
+    """Without ``device`` the models (the gumbel one too), the discriminator,
+    LPIPS and the Trainers (the GAN one too) go to CUDA; here the move is
+    recorded, not made, so the test runs without a card."""
     from vqvae_tpu_torch import load_config
+    from vqvae_tpu_torch.models.discriminator import Discriminator
+    from vqvae_tpu_torch.models.lpips import LPIPS, init_lpips
     from vqvae_tpu_torch.models.vqvae import VQVAE
     from vqvae_tpu_torch.train.loop import Trainer
     asked = []
@@ -74,7 +77,8 @@ def test_entry_points_ask_for_the_card_by_default(monkeypatch):
         asked.append(device)
         return self
 
-    monkeypatch.setattr(VQVAE, "to", record_to)
+    for cls in (VQVAE, Discriminator, LPIPS):
+        monkeypatch.setattr(cls, "to", record_to)
     cfg = load_config(str(ROOT / "example_confs" / "ema_vqvae.yaml"))
     tiny = dataclasses.replace(cfg, image_size=16, autoencoder=dataclasses.replace(
         cfg.autoencoder, channels=32, num_res_blocks=1, channel_multipliers=(1, 2)),
@@ -82,6 +86,20 @@ def test_entry_points_ask_for_the_card_by_default(monkeypatch):
     VQVAE.from_config(tiny)
     VQVAE.from_config(tiny, device="cpu")
     assert [torch.device(d) for d in asked] == [torch.device("cuda"), torch.device("cpu")]
+
+    gumbel = load_config(str(ROOT / "example_confs" / "gumbel_vqgan.yaml"))
+    tiny_gan = dataclasses.replace(gumbel, image_size=16, autoencoder=tiny.autoencoder,
+                                   quantizer=dataclasses.replace(gumbel.quantizer,
+                                                                 num_embeddings=32))
+    monkeypatch.setenv("VQVAE_TPU_LPIPS_WEIGHTS_DIR", str(tmp_path))   # no .npz: random init
+    asked.clear()
+    VQVAE.from_config(tiny_gan)
+    Discriminator(16, channel_base=256)
+    with pytest.warns(UserWarning, match="LPIPS"):
+        init_lpips("vgg")
+        gan_trainer = Trainer(tiny_gan, learning_rate=1e-4, seed=0, steps_per_epoch=10)
+    assert [torch.device(d) for d in asked] == [torch.device("cuda")] * 4
+    assert gan_trainer.device == torch.device("cuda")
 
     class Asked(Exception):
         pass
@@ -127,6 +145,10 @@ def test_chip_smoke_refuses_without_gpu():
     ("void at::native::reduce_kernel<512, 1>", "reduce"),
     ("void at::native::vectorized_elementwise_kernel<4>", "elementwise"),
     ("void at::native::avg_pool2d_out_cuda_frame<float, float>", "other"),
+    ("void (anonymous namespace)::blur_t_gate_kernel<float>(float const*)", "B3 blur_t_gate"),
+    ("(anonymous namespace)::channel_sum_kernel(float const*, float*, int)", "B3 blur_t_gate"),
+    ("void (anonymous namespace)::skip_fanout_bwd_kernel<__nv_bfloat16>(__nv_bfloat16 const*)",
+     "B4 skip_fanout_bwd"),
 ])
 def test_profiler_kinds(name, kind):
     from vqvae_tpu_torch.profile_tokenizer import kind_of

@@ -164,6 +164,13 @@ def test_train_preprocess_needs_a_generator():
 @pytest.mark.parametrize("change,match", [
     ({"training": {**RAW["training"], "grad_accum_steps": 2}}, "grad_accum_steps.*ROADMAP"),
     ({"loss": {"l1_weight": 0.8, "l2_weight": 0.2, "perc_weight": 1.0}}, "loss.*ROADMAP"),
+    ({"loss": {"l1_weight": 0.8, "l2_weight": 0.2, "perc_weight": 1.0, "adversarial_params": {
+        "start_epoch": 0, "loss_type": "hinge", "g_weight": 0.1, "use_adaptive": True,
+        "r1_reg_weight": 10.0, "r1_reg_every": 16}}}, "use_adaptive.*ROADMAP.*item 2"),
+    ({"quantizer": {**RAW["quantizer"], "type": "entropy", "params": {
+        "ent_loss_ratio": 0.1, "ent_temperature": 0.01, "ent_loss_type": "softmax",
+        "commitment_cost": 0.25}}}, "entropy.*ROADMAP.*item 6"),
+    ({"training": {**RAW["training"], "grad_accum_steps": 4}}, "grad_accum_steps.*item 1"),
 ])
 def test_trainer_refuses_what_it_does_not_carry(change, match):
     cfg = parse_config({**RAW, **change})

@@ -1,5 +1,5 @@
-"""Standard and EMA vector quantizers and codebook helpers (counterpart of
-``vqvae_tpu/models/quantizers.py:44-93, 166-296``).
+"""Standard, EMA and gumbel vector quantizers and codebook helpers
+(counterpart of ``vqvae_tpu/models/quantizers.py:44-93, 166-381``).
 
 Quantizers take NCHW latents ``z: (B, D, H, W)`` and flatten them in
 (b, h, w) row-major order, as the JAX package flattens its NHWC latents, so
@@ -9,6 +9,8 @@ codes ``(B, H*W)`` mean the same positions on both sides.
 from __future__ import annotations
 
 from typing import Optional, Tuple
+
+import math
 
 import torch
 from torch import nn
@@ -124,7 +126,7 @@ class EMAVectorQuantizer(nn.Module):
     from before the update. The Laplace smoothing is normalized by the image
     count ``b``, not the latent count ``b*h*w``, a reference quirk kept for
     training parity. Single device: the JAX package's cross-replica ``psum`` of
-    the statistics is multi-GPU work (ROADMAP.md queue A, item 13).
+    the statistics is multi-GPU work (ROADMAP.md queue A, item 8).
     """
 
     def __init__(self, num_embeddings: int, embedding_dim: int,
@@ -175,10 +177,98 @@ class EMAVectorQuantizer(nn.Module):
         return nearest_codes(flat_x, self.codebook.weight).reshape(b, h * w)
 
 
+def gumbel_noise(shape, device, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Standard Gumbel noise ``-log(E)``, E ~ Exp(1) (``F.gumbel_softmax``'s
+    draw), fp32, from ``generator`` (on ``device``) or the default one."""
+    e = torch.empty(shape, device=device).exponential_(generator=generator)
+    return -e.log()
+
+
+def gumbel_softmax(logits: torch.Tensor, tau: float, hard: bool,
+                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Gumbel-softmax over the last dim (``F.gumbel_softmax`` with an
+    explicit generator); ``hard``: one-hot of the argmax + soft - soft.detach()."""
+    g = gumbel_noise(logits.shape, logits.device, generator).to(logits.dtype)
+    y_soft = ((logits + g) / tau).softmax(-1)
+    if not hard:
+        return y_soft
+    idx = y_soft.argmax(-1, keepdim=True)
+    y_hard = torch.zeros_like(y_soft).scatter_(-1, idx, 1.0)
+    return y_hard + y_soft - y_soft.detach()
+
+
+class GumbelVectorQuantizer(nn.Module):
+    """Gumbel-softmax VQ (counterpart of ``vqvae_tpu/models/quantizers.py:310-381``,
+    reference vector_quantizers.py:206-274).
+
+    The encoder emits ``num_embeddings`` channels; ``x_to_logits``, a 1x1
+    conv N -> N in fp32 (a full-fp32 matmul, as the JAX einsum at HIGHEST),
+    maps them to logits. Training mixes the codebook with the soft one-hot
+    (hard only with ``straight_through``); inference takes the hard one-hot.
+    The loss is ``kl_cost`` times KL(q || uniform) over the unmasked rows.
+    ``temp`` and ``kl_cost`` are call-time arguments (the schedules' values);
+    the noise comes from ``generator``.
+    """
+
+    def __init__(self, num_embeddings: int, embedding_dim: int, straight_through: bool = False,
+                 temp: float = 1.0, kl_cost: float = 5e-4,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        n = num_embeddings
+        self.num_embeddings = n
+        self.straight_through = straight_through
+        self.temp = temp
+        self.kl_cost = kl_cost
+        self.codebook = nn.Embedding(n, embedding_dim,
+                                     _weight=codebook_init(n, embedding_dim, generator))
+        self.x_to_logits = nn.Conv2d(n, n, 1, device="meta")
+        bound = 1.0 / math.sqrt(n)   # torch's default conv init, as the JAX package's
+        self.x_to_logits.weight = nn.Parameter(
+            torch.empty(n, n, 1, 1).uniform_(-bound, bound, generator=generator))
+        self.x_to_logits.bias = nn.Parameter(
+            torch.empty(n).uniform_(-bound, bound, generator=generator))
+
+    def logits(self, flat_z: torch.Tensor) -> torch.Tensor:
+        w = self.x_to_logits.weight[:, :, 0, 0]
+        return torch.addmm(self.x_to_logits.bias, flat_z.float(), w.T)
+
+    def forward(self, z: torch.Tensor, train: bool = False, mask: Optional[torch.Tensor] = None,
+                temp: Optional[float] = None, kl_cost: Optional[float] = None,
+                generator: Optional[torch.Generator] = None):
+        """NCHW latents (B, N, H, W) -> (quantized NCHW, codes (B, H*W) int32,
+        KL loss)."""
+        temp = self.temp if temp is None else temp
+        kl_cost = self.kl_cost if kl_cost is None else kl_cost
+        flat_z, (b, h, w, n) = _flatten(z)
+        logits = self.logits(flat_z)
+        hard = self.straight_through if train else True
+        soft_one_hot = gumbel_softmax(logits, temp, hard, generator)
+        quantized = soft_one_hot @ self.codebook.weight
+
+        qy = logits.softmax(-1)
+        kl_per_pos = (qy * torch.log(qy * n + 1e-10)).sum(-1)
+        kl_loss = kl_cost * _wmean(kl_per_pos, _row_weights(mask, h * w))
+
+        codes = soft_one_hot.detach().argmax(-1).int().reshape(b, h * w)
+        quantized = quantized.reshape(b, h, w, -1).permute(0, 3, 1, 2).contiguous()
+        return quantized, codes, kl_loss
+
+    def vec_to_codes(self, z: torch.Tensor, deterministic: bool = False,
+                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Codes from raw encoder output (B, N, H, W) -> (B, H*W) int32. As the
+        reference, the noise (tau 1, hard) goes on the raw encoder channels,
+        not on ``x_to_logits``'s logits; ``deterministic=True`` is the plain
+        argmax."""
+        flat_z, (b, h, w, n) = _flatten(z)
+        if not deterministic:
+            flat_z = flat_z + gumbel_noise(flat_z.shape, flat_z.device, generator).to(flat_z.dtype)
+        return flat_z.argmax(-1).int().reshape(b, h * w)
+
+
 def make_quantizer(q_type: str, num_embeddings: int, embedding_dim: int,
                    params: dict, generator: Optional[torch.Generator] = None) -> nn.Module:
     """Quantizer factory (reference model.py:89-124); the port carries the
-    standard and EMA quantizers."""
+    standard, EMA and gumbel quantizers."""
     if q_type == "standard":
         return VectorQuantizer(num_embeddings, embedding_dim,
                                commitment_cost=float(params["commitment_cost"]),
@@ -189,7 +279,13 @@ def make_quantizer(q_type: str, num_embeddings: int, embedding_dim: int,
                                   decay=float(params["decay"]),
                                   epsilon=float(params["epsilon"]),
                                   generator=generator)
-    if q_type in ("gumbel", "entropy"):
+    if q_type == "gumbel":
+        return GumbelVectorQuantizer(num_embeddings, embedding_dim,
+                                     straight_through=bool(params["straight_through"]),
+                                     temp=float(params["temp"]),
+                                     kl_cost=float(params["kl_cost"]),
+                                     generator=generator)
+    if q_type == "entropy":
         raise NotImplementedError(
-            f"the {q_type} quantizer is not ported yet (ROADMAP.md queue A, item 9)")
+            "the entropy quantizer is not ported yet (ROADMAP.md queue A, item 6)")
     raise ValueError(f"unrecognized quantizer: {q_type}")

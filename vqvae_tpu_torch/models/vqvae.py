@@ -7,6 +7,10 @@ The public methods keep the JAX package's layout: NHWC images in [0,1]
 order. The modules inside run NCHW. The tokenizer API (``get_tokens``,
 ``quantize``, ``reconstruct``, ``reconstruct_from_tokens``) runs under
 ``torch.inference_mode()``.
+
+For the gumbel quantizer the encoder emits ``num_embeddings`` channels
+(reference model.py:130); ``temp`` and ``kl_cost`` are call-time arguments
+(the schedules' values), and ``generator`` draws the gumbel noise.
 """
 
 from __future__ import annotations
@@ -38,10 +42,12 @@ class VQVAE(nn.Module):
                  quantizer_params: dict, dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        self.quantizer_type = quantizer_type
         self.quantizer = make_quantizer(quantizer_type, num_embeddings, embedding_dim,
                                         quantizer_params, generator)
+        encoder_out = num_embeddings if quantizer_type == "gumbel" else embedding_dim
         self.encoder = Encoder(channels, num_res_blocks, channel_multipliers,
-                               embedding_dim, dtype, generator)
+                               encoder_out, dtype, generator)
         self.decoder = Decoder(channels, num_res_blocks, channel_multipliers,
                                embedding_dim, dtype, generator)
 
@@ -65,29 +71,42 @@ class VQVAE(nn.Module):
         )
         return model.to(device).eval()
 
+    def _quantize(self, z, train, mask=None, temp=None, kl_cost=None, generator=None):
+        if self.quantizer_type == "gumbel":
+            return self.quantizer(z, train=train, mask=mask, temp=temp, kl_cost=kl_cost,
+                                  generator=generator)
+        return self.quantizer(z, train=train, mask=mask)
+
     def forward(self, x: torch.Tensor, train: bool = False,
-                mask: Optional[torch.Tensor] = None):
+                mask: Optional[torch.Tensor] = None, temp: Optional[float] = None,
+                kl_cost: Optional[float] = None,
+                generator: Optional[torch.Generator] = None):
         """Normalized (-1,1) NHWC images -> (recon (-1,1) NHWC, q_loss,
         codes (B, S) int32). ``train=True`` advances the EMA quantizer's
         buffers (never keyed on ``nn.Module.training``); ``mask``: optional
-        (B,) bool, rows with False are left out of the quantizer loss."""
+        (B,) bool, rows with False are left out of the quantizer loss;
+        ``temp``, ``kl_cost``, ``generator``: the gumbel quantizer's."""
         z = self.encoder(_nchw(x))
-        quantized, codes, q_loss = self.quantizer(z, train=train, mask=mask)
+        quantized, codes, q_loss = self._quantize(z, train, mask, temp, kl_cost, generator)
         return _nhwc(self.decoder(quantized)), q_loss, codes
 
     # tokenizer API (reference model.py:458-489)
 
     @torch.inference_mode()
-    def get_tokens(self, images: torch.Tensor) -> torch.Tensor:
-        """[0,1] NHWC images -> (B, S) int32 codebook indices."""
+    def get_tokens(self, images: torch.Tensor, deterministic: bool = False,
+                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """[0,1] NHWC images -> (B, S) int32 codebook indices. Gumbel: noisy
+        argmax of the raw encoder channels unless ``deterministic``."""
         z = self.encoder(_nchw(preprocess_batch(images)))
+        if self.quantizer_type == "gumbel":
+            return self.quantizer.vec_to_codes(z, deterministic, generator)
         return self.quantizer.vec_to_codes(z)
 
     @torch.inference_mode()
     def quantize(self, images: torch.Tensor) -> torch.Tensor:
         """[0,1] NHWC images -> (B, S, D) quantized latents."""
         z = self.encoder(_nchw(preprocess_batch(images)))
-        quantized, _, _ = self.quantizer(z)
+        quantized, _, _ = self._quantize(z, False)
         b, d = quantized.shape[:2]
         return quantized.reshape(b, d, -1).transpose(1, 2)
 

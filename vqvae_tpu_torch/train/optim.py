@@ -1,6 +1,6 @@
-"""The autoencoder optimizer: AdamW with the reference's decay / no-decay
-split (counterpart of ``vqvae_tpu/train/optim.py:29-95``, reference
-model.py:372-410).
+"""The optimizers (counterpart of ``vqvae_tpu/train/optim.py``): the
+autoencoder's AdamW with the reference's decay / no-decay split (reference
+model.py:372-410), and the discriminator's, with decay on every parameter.
 
 Weight decay applies to convolution kernels only; biases, GroupNorm scales
 and biases and the codebook get none. The JAX package finds the kernels as
@@ -48,3 +48,11 @@ def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
     """One LR for every param group (reference model.py:202-216)."""
     for group in optimizer.param_groups:
         group["lr"] = lr
+
+
+def make_disc_optimizer(disc: nn.Module, betas, eps: float,
+                        weight_decay: float) -> torch.optim.AdamW:
+    """The discriminator's AdamW: weight decay on every parameter
+    (reference model.py:431-434). The LR is set before each step."""
+    return torch.optim.AdamW(disc.parameters(), lr=0.0, betas=tuple(float(b) for b in betas),
+                             eps=float(eps), weight_decay=float(weight_decay))

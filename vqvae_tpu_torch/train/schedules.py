@@ -65,3 +65,22 @@ def build_lr_schedule(lr: float, steps_per_epoch: int, warmup_epochs: Optional[f
     if decay_epochs is not None:
         return cosine_schedule(0.0, decay_epochs * steps_per_epoch, lr, lr / 2.0)
     return constant_schedule(lr)
+
+
+def build_gumbel_schedules(temp: float, kl_cost: float, steps_per_epoch: int,
+                           kl_warmup_epochs: Optional[float], temp_decay_epochs: Optional[float],
+                           temp_final: Optional[float]):
+    """(temp_schedule, kl_schedule) of the gumbel quantizer (reference
+    model.py:189-200): KL cost cosine 0 -> kl_cost over the warmup, the
+    temperature cosine temp -> temp_final over its decay; constants without
+    them."""
+    if kl_warmup_epochs is not None:
+        kl_sched = cosine_schedule(0.0, int(kl_warmup_epochs * steps_per_epoch), 0.0, kl_cost)
+    else:
+        kl_sched = constant_schedule(kl_cost)
+    if temp_decay_epochs is not None and temp_final is not None:
+        temp_sched = cosine_schedule(0.0, int(temp_decay_epochs * steps_per_epoch), temp,
+                                     temp_final)
+    else:
+        temp_sched = constant_schedule(temp)
+    return temp_sched, kl_sched

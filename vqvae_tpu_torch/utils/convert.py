@@ -1,5 +1,6 @@
-"""JAX variables -> state_dict of the PyTorch port: the inverse of
-``vqvae_tpu/utils/torch_convert.py::convert_vqvae_state_dict``.
+"""JAX parameters -> state_dicts of the PyTorch port: the inverse of
+``vqvae_tpu/utils/torch_convert.py`` (``convert_vqvae_state_dict``,
+``convert_discriminator_state_dict``), and the LPIPS weights.
 
 Layout mapping (the JAX package is NHWC, the port NCHW):
 - flax kernel (kh, kw, I, O)  ->  Conv2d weight (O, I, kh, kw)
@@ -7,8 +8,12 @@ Layout mapping (the JAX package is NHWC, the port NCHW):
 - codebook (N, D)  ->  quantizer.codebook.weight (N, D) unchanged
 - EMA ``vq_state`` codebook, ema_count, ema_weight  ->  quantizer buffers of the
   same names, unchanged
+- gumbel ``x_to_logits_kernel`` (1, 1, N, N) / ``_bias``  ->
+  ``quantizer.x_to_logits.weight`` (N, N, 1, 1) / ``.bias``
+- discriminator FC weight (in, out)  ->  (out, in); ``b4.fc``'s input axis
+  from the NHWC flatten to the NCHW one
 
-Takes the variables as numpy arrays (``{'params': {...}[, 'vq_state': {...}]}``).
+Takes numpy arrays (``{'params': {...}[, 'vq_state': {...}]}`` for the VQVAE).
 """
 
 from __future__ import annotations
@@ -101,5 +106,54 @@ def convert_vqvae_variables(variables: dict, num_res_blocks: int,
                    "quantizer.ema_count": _t(q["ema_count"]),
                    "quantizer.ema_weight": _t(q["ema_weight"])})
     else:
-        sd["quantizer.codebook.weight"] = _t(params["quantizer"]["codebook"])
+        q = params["quantizer"]
+        sd["quantizer.codebook.weight"] = _t(q["codebook"])
+        if "x_to_logits_kernel" in q:
+            sd.update(conv_state({"kernel": q["x_to_logits_kernel"],
+                                  "bias": q["x_to_logits_bias"]}, "quantizer.x_to_logits"))
+    return sd
+
+
+def _fc_state(p: dict, prefix: str, spatial: int = 0) -> Dict[str, torch.Tensor]:
+    """Equalized FC {weight (in, out)[, bias]} -> weight (out, in)[, bias].
+    ``spatial`` > 0: the input is a (spatial, spatial, C) NHWC flatten, made
+    a (C, spatial, spatial) NCHW one."""
+    w = np.asarray(p["weight"])
+    if spatial:
+        c = w.shape[0] // (spatial * spatial)
+        w = w.reshape(spatial, spatial, c, -1).transpose(2, 0, 1, 3).reshape(w.shape[0], -1)
+    out = {f"{prefix}.weight": _t(w.T)}
+    if "bias" in p:
+        out[f"{prefix}.bias"] = _t(p["bias"])
+    return out
+
+
+def convert_discriminator_params(params: dict) -> Dict[str, torch.Tensor]:
+    """flax Discriminator params -> port Discriminator state_dict (the
+    reference's torch names and layouts; load with ``strict=True``)."""
+    sd = {}
+    for name, block in params.items():
+        if name == "b4":
+            continue
+        for layer, p in block.items():
+            sd[f"{name}.{layer}.weight"] = _t(np.transpose(np.asarray(p["weight"]), (3, 2, 0, 1)))
+            if "bias" in p:
+                sd[f"{name}.{layer}.bias"] = _t(p["bias"])
+    ep = params["b4"]
+    sd["b4.conv.weight"] = _t(np.transpose(np.asarray(ep["conv"]["weight"]), (3, 2, 0, 1)))
+    sd["b4.conv.bias"] = _t(ep["conv"]["bias"])
+    sd.update(_fc_state(ep["fc"], "b4.fc", spatial=4))
+    sd.update(_fc_state(ep["out"], "b4.out"))
+    return sd
+
+
+def convert_lpips_params(params: dict) -> Dict[str, torch.Tensor]:
+    """JAX LPIPS-VGG params (``{'net': {'conv{i}': {kernel, bias}}, 'lin{i}':
+    (C, 1)}``, the layout of the converted ``.npz``) -> port LPIPS state_dict."""
+    sd = {}
+    for name, p in params["net"].items():
+        sd.update(conv_state(p, f"net.{name}"))
+    for name, v in params.items():
+        if name != "net":
+            sd[name] = _t(v)
     return sd
