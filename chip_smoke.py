@@ -10,9 +10,15 @@ exit and no result line:
 
 1. device: card name and power limit (nvidia-smi); TF32 off for matmuls and
    convolutions, so that fp32 means fp32;
-2. build: the time nvcc takes;
+2. build: the time nvcc takes, and ptxas's registers, shared memory and
+   spills of each nearest-code kernel;
 3. B1 vs plain: the nearest-code kernel against ``nearest_codes_reference``
-   at the tokenizer's shapes and at ragged ones;
+   at the tokenizer's shapes and at ragged ones (an odd D, a latent buffer
+   that is not 16-byte aligned); a duplicated codebook row whose copies fall
+   in different code ranges of the scan (the first index wins), a NaN
+   latent row, a NaN codebook row (every row takes it, as ``torch.argmin``
+   does) and +-inf latents, each equal to the plain version; a second launch
+   bit-identical;
 4. tokenizer slice: the tokenizer API (``get_tokens``, ``reconstruct``,
    ``reconstruct_from_tokens``) at full width on
    ``example_confs/standard_vqvae.yaml`` with seeded random weights, at
@@ -43,8 +49,9 @@ exit and no result line:
    others, B1 and B2 never; then one non-R1 fp32 step's autoencoder and D
    gradients, fused against plain, within ``GRAD_SHARE`` of each tensor's
    largest entry (or of 1e-3 of the module's, if that is larger); ``eval_step`` with the GAN active; peak memory;
-9. times: CUDA events, warm-up, median of 5 windows: B1 and B2 against
-   their plain versions and a PyTorch composition, the tokenizer calls, the
+9. times: CUDA events, warm-up, median of 5 windows: B1 (also at the
+   batch-1 shape) and B2 against their plain versions and a PyTorch
+   composition, beside their 3xTF32 and FFMA bounds, the tokenizer calls, the
    train step; B3 and B4 at the first block's shape against theirs; the GAN
    step, R1 and not, fused and plain, in bf16 and fp32 (3 windows after a
    warm-up for a non-R1 step, 1 window for an R1 step).
@@ -56,8 +63,10 @@ non-zero before doing anything.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -66,7 +75,7 @@ from pathlib import Path
 
 import torch
 
-from vqvae_tpu_torch import load_config
+from vqvae_tpu_torch import load_config, profile_tokenizer
 from vqvae_tpu_torch.models.preprocess import preprocess_batch
 from vqvae_tpu_torch.models.vqvae import VQVAE
 from vqvae_tpu_torch.ops import _build, fused_dbwd, fused_dbwd_cuda, vq_cuda
@@ -80,7 +89,11 @@ CONFIG = ROOT / "example_confs" / "standard_vqvae.yaml"
 TRAIN_CONFIG = ROOT / "example_confs" / "ema_vqvae.yaml"
 GAN_CONFIG = ROOT / "example_confs" / "gumbel_vqgan.yaml"
 SEED = 0
-KERNEL_SHAPES = [(8192, 1024, 256), (256, 1024, 256), (1000, 37, 8), (4097, 1024, 256)]
+KERNEL_SHAPES = [(8192, 1024, 256), (256, 1024, 256), (1000, 37, 8), (4097, 1024, 256),
+                 (1000, 300, 37)]
+B1_TIMED = [(8192, 1024, 256), (8192, 4096, 256), (256, 1024, 256)]
+SPLIT_SWEEP = {(256, 1024, 256): (8, 32, 66, 132), (8192, 1024, 256): (2, 4, 8),
+               (8192, 4096, 256): (2, 4)}
 STATS_SHAPES = [(8192, 4096, 256), (256, 4096, 256), (1000, 37, 8), (4097, 1024, 256)]
 MISMATCH_SHARE = 1e-4       # at most 0.01% of rows may differ, each a near-tie
 RECON_ATOL = 1e-4           # reconstruct_from_tokens(get_tokens(x)) vs reconstruct(x)
@@ -102,8 +115,9 @@ GAN_BATCH = 32
 GAN_STEPS = 4               # per precision
 GRAD_SHARE = 1e-4           # fused vs plain gradients, share of each tensor's largest entry
 # published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): fp32 on the
-# CUDA cores, and device memory
+# CUDA cores, TF32 on the tensor cores (dense), and device memory
 FP32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 MEM_BYTES_PER_S = 3.35e12
 
 
@@ -150,17 +164,50 @@ def bound(flops: float, nbytes: float):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def bound_3xtf32(m: int, n: int, d: int, nbytes: float, fp32_flops: float = 0.0):
+    """(least ms, "operations" or "bytes", FFMA-only ms) of a nearest-code
+    scan: 3 TF32 passes x 2*m*n*d on the tensor cores (plus ``fp32_flops`` on
+    the CUDA cores) against the bytes; the FFMA-only time is the same product
+    in fp32 FMAs, the bound of the scan before the tensor cores."""
+    t_ops = (3 * 2 * m * n * d / TF32_FLOPS + fp32_flops / FP32_FLOPS) * 1e3
+    t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
+    t_ffma = (2 * m * n * d + fp32_flops) / FP32_FLOPS * 1e3
+    return (t_ops, "operations", t_ffma) if t_ops >= t_bytes else (t_bytes, "bytes", t_ffma)
+
+
+def ptxas_summary(report: str) -> list[str]:
+    """One line per kernel of nvcc's ``-Xptxas -v`` output: registers, spills
+    and shared memory."""
+    lines, name, spill = [], None, ""
+    for line in report.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            kernel = re.search(r"(nearest_codes[a-z_]*?_kernel)(ILb([01])E)?", entry.group(1))
+            name = kernel.group(1) + (f"<{'true' if kernel.group(3) == '1' else 'false'}>"
+                                      if kernel.group(2) else "") if kernel else entry.group(1)
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and name:
+            used = line.split(":", 1)[1].strip()
+            lines.append(f"{name}: {used}; {spill}")
+            name, spill = None, ""
+    return lines
+
+
 def phase_build() -> None:
     names = ("nearest_codes", "nearest_codes_stats", "fused_dbwd")
     fresh = [n for n in names if not _build.library_path(n).exists()]
     t0 = time.perf_counter()
-    _build.build(names)
+    reports = _build.build(names)
     vq_cuda.library()
     vq_cuda.stats_library()
     fused_dbwd_cuda.library()
     print(f"build: {', '.join(f'{n}.cu' for n in names)}: {len(fresh)} built, in parallel, "
           f"in {time.perf_counter() - t0:.2f} s -> "
           f"{', '.join(str(_build.library_path(n).relative_to(ROOT)) for n in names)}")
+    for lib in ("nearest_codes", "nearest_codes_stats"):
+        for line in ptxas_summary(reports.get(lib, "")):
+            print(f"ptxas {lib}.cu: {line}")
 
 
 def _agree(x, cb, got, want, what: str) -> float:
@@ -188,19 +235,56 @@ def phase_kernel(device) -> float:
             torch.cuda.synchronize()
             max_gap = max(max_gap, _agree(x, cb, got, want,
                                           f"kernel vs plain ({m},{n},{d}) {kind}"))
-    # a duplicated codebook row ties exactly: the first index wins; a NaN
-    # latent row maps to code 0 as torch.argmin does
-    cb = torch.randn(1024, 256, device=device, generator=gen)
-    cb[700] = cb[300]
-    x = torch.randn(512, 256, device=device, generator=gen)
-    x[:256] = cb[300]
-    x[300, 5] = float("nan")
+            if (m, n, d) == KERNEL_SHAPES[0]:
+                check(torch.equal(got, vq_cuda.nearest_codes_cuda(x, cb)),
+                      f"kernel ({m},{n},{d}) {kind}: bit-identical rerun")
+    # the 4-byte copy path: latents that are not 16-byte aligned
+    m, n, d = KERNEL_SHAPES[0]
+    cb = torch.randn(n, d, device=device, generator=gen)
+    x = torch.randn(m * d + 1, device=device, generator=gen)[1:].view(m, d)
+    max_gap = max(max_gap, _agree(x, cb, vq_cuda.nearest_codes_cuda(x, cb),
+                                  nearest_codes_reference(x, cb),
+                                  f"kernel vs plain ({m},{n},{d}) latents 4 bytes off alignment"))
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for m, n, d, i, j in ((512, 1024, 256, 300, 700), (8192, 1024, 256, 100, 1000),
+                          (256, 1024, 256, 3, 500)):
+        # a duplicated codebook row ties exactly, its copies in different code
+        # ranges of the scan: the first index wins; a NaN latent row maps to
+        # code 0 as torch.argmin does
+        ranges = vq_cuda.code_ranges(n, vq_cuda.scan_splits(m, n, sms))
+        ri, rj = (next(r for r, (lo, hi) in enumerate(ranges) if lo <= c < hi) for c in (i, j))
+        check(ri != rj, f"codes {i} and {j} fall in different code ranges at ({m},{n},{d})")
+        cb = torch.randn(n, d, device=device, generator=gen)
+        cb[j] = cb[i]
+        x = torch.randn(m, d, device=device, generator=gen)
+        x[:m // 2] = cb[i]
+        x[m // 2 + 7, 5] = float("nan")
+        got = vq_cuda.nearest_codes_cuda(x, cb)
+        want = nearest_codes_reference(x, cb)
+        check(bool((got[:m // 2] == i).all()), f"({m},{n},{d}) duplicated row: the first index wins")
+        check(int(got[m // 2 + 7]) == 0, f"({m},{n},{d}) NaN row -> code 0")
+        max_gap = max(max_gap, _agree(x, cb, got, want, f"kernel vs plain ({m},{n},{d}) with "
+                                      f"codebook row {j} (code range {rj} of {len(ranges)}) = "
+                                      f"row {i} (range {ri}) and a NaN latent row"))
+        print(f"kernel vs plain ({m},{n},{d}): the duplicated row -> first index {i} on "
+              f"{m // 2} of {m // 2} rows; NaN row -> code 0")
+    # a NaN in a codebook row: every row takes that code; +-inf latents
+    m, n, d = 512, 1024, 256
+    cb = torch.randn(n, d, device=device, generator=gen)
+    x = torch.randn(m, d, device=device, generator=gen)
+    x[5, 7] = float("inf")
+    x[6, 9] = float("-inf")
+    x[7, :3] = float("inf")
     got = vq_cuda.nearest_codes_cuda(x, cb)
     want = nearest_codes_reference(x, cb)
-    check(bool((got[:256] == 300).all()), "duplicated row: the first index wins")
-    check(int(got[300]) == 0 and torch.equal(got, want), "NaN row and ties as the plain version")
-    print("kernel vs plain: duplicated codebook row -> first index (256 of 256 rows); "
-          "NaN row -> code 0; equal to the plain version on all 512 rows")
+    check(torch.equal(got, want), "+-inf latents as the plain version")
+    x = torch.randn(m, d, device=device, generator=gen)
+    cb[611, 17] = float("nan")
+    got_nan = vq_cuda.nearest_codes_cuda(x, cb)
+    check(bool((got_nan == 611).all()) and torch.equal(got_nan, nearest_codes_reference(x, cb)),
+          "a NaN codebook row takes every row, as the plain version")
+    print(f"kernel vs plain ({m},{n},{d}): +-inf latents -> codes {got[5:8].tolist()} "
+          f"(plain {want[5:8].tolist()}); NaN in codebook row 611 -> code 611 on all {m} rows")
     return max_gap
 
 
@@ -239,7 +323,9 @@ def phase_slice(cfg, device):
             cb = model.quantizer.codebook.weight
             max_gap = max(max_gap, _agree(flat, cb, tokens.reshape(-1),
                                           nearest_codes_reference(flat, cb),
-                                          f"slice b={b}: get_tokens vs plain on the latents"))
+                                          f"slice b={b}: get_tokens vs plain on the latents "
+                                          f"({near_ties(flat.contiguous(), cb.contiguous())} "
+                                          "near ties rescored)"))
         check(recon.shape == (b, size, size, 3), f"reconstruct shape b={b}")
         check(bool(torch.isfinite(recon).all()) and float(recon.min()) >= 0
               and float(recon.max()) <= 1, f"reconstruct finite in [0,1] b={b}")
@@ -414,7 +500,8 @@ def phase_train(cfg, device, card: str):
         flat = z.reshape(-1, z.shape[-1])
         cb = state.model.quantizer.codebook.weight
         _agree(flat, cb, tokens.reshape(-1), nearest_codes_reference(flat, cb),
-               "train slice: get_tokens on the trained model vs plain")
+               f"train slice: get_tokens on the trained model vs plain "
+               f"({near_ties(flat.contiguous(), cb.contiguous())} near ties rescored)")
     print(f"train slice: eval_step {{{', '.join(f'{k}: {float(v):.5f}' for k, v in metrics.items())}}}, "
           f"usage {int(usage.sum())} rows; get_tokens {tuple(tokens.shape)}; the path launched "
           f"nearest_codes {b1} times and nearest_codes_stats {b2} times")
@@ -425,6 +512,66 @@ def phase_train(cfg, device, card: str):
         print(f"time [{card}]: train_step ema {str(dtype).removeprefix('torch.')} batch "
               f"{TRAIN_BATCH}: {ms:.2f} ms, {TRAIN_BATCH * 1000 / ms:.1f} images/s")
     return b1, b2
+
+
+def device_ms(fn, key: str, tries: int = 3) -> dict:
+    """Device time per call of each kernel whose name holds ``key``, from
+    ``torch.profiler`` over a few calls (the host's enqueue time excluded);
+    -> {name: ms}. A profiler window that recorded none of them (the
+    profiler drops a window's device events now and then) is taken again, up
+    to ``tries`` windows; -> {} if every one came back empty."""
+    for _ in range(tries):
+        _, _, per_kernel = profile_tokenizer.profile_call(fn)
+        found = {name: ms / profile_tokenizer.CALLS for name, (_, ms) in per_kernel.items()
+                 if key in name}
+        if found:
+            return found
+    return {}
+
+
+def _ms(value) -> str:
+    return "not measured" if value is None else f"{value:.4f} ms"
+
+
+def _reach(bound: float, dev) -> str:
+    return "not measured" if dev is None else f"{bound / dev:.1%}"
+
+
+def _short(name: str) -> str:
+    found = re.search(r"nearest_codes\w*?_kernel", name)
+    return found.group(0) if found else name
+
+
+def near_ties(x, cb) -> int:
+    """How many rows of (x, cb) B1's merge puts on its fp32 rescoring list."""
+    m, n = x.shape[0], cb.shape[0]
+    splits = vq_cuda.scan_splits(m, n, torch.cuda.get_device_properties(x.device)
+                                 .multi_processor_count)
+    _, scratch = vq_cuda._launch_scan(x, cb, splits)
+    return vq_cuda.listed_rows(scratch, m, splits)
+
+
+def _scan_sweep(device, card: str) -> None:
+    """B1's launches at the split the wrapper picks and at others (the
+    wrapper's work but its checks and count), timed by CUDA events and by
+    the device time of its kernels: the evidence for ``scan_splits``."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 8)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for (m, n, d), sweep in SPLIT_SWEEP.items():
+        x = torch.randn(m, d, device=device, generator=gen)
+        cb = torch.randn(n, d, device=device, generator=gen)
+        picked = vq_cuda.scan_splits(m, n, sms)
+        fns, near = {}, {}
+        for splits in sorted({*sweep, picked}):
+            fns[splits] = functools.partial(vq_cuda._launch_scan, x, cb, splits)
+            near[splits] = vq_cuda.listed_rows(fns[splits]()[1], m, splits)
+        t = _turns(fns, reps=20)
+        dev = {k: sum(device_ms(fn, "nearest_codes").values()) or None for k, fn in fns.items()}
+        print(f"time [{card}]: nearest_codes ({m},{n},{d}) launches (c2, scan, merge, "
+              f"rescoring) by code ranges (row tiles {-(-m // vq_cuda.BM)}; scan_splits picks "
+              f"{picked}; Gaussian rows, {near[picked]} of {m} near ties rescored): "
+              + ", ".join(f"{k} ranges {v[0]:.4f} ms (device {_ms(dev[k])})"
+                          for k, v in t.items()))
 
 
 def _turns(fns: dict, reps: int, windows: int = 5, warmup: int = 2) -> dict:
@@ -440,7 +587,7 @@ def _turns(fns: dict, reps: int, windows: int = 5, warmup: int = 2) -> dict:
 def phase_times(cfg, model, device, card: str):
     gen = torch.Generator(device=device).manual_seed(SEED + 2)
     rows = {}
-    for m, n, d in ((8192, 1024, 256), (8192, 4096, 256)):
+    for m, n, d in B1_TIMED:
         x = torch.randn(m, d, device=device, generator=gen)
         cb = torch.randn(n, d, device=device, generator=gen)
         c2 = (cb ** 2).sum(1)
@@ -448,13 +595,23 @@ def phase_times(cfg, model, device, card: str):
                     "kernel": lambda: vq_cuda.nearest_codes_cuda(x, cb),
                     # one cuBLAS GEMM with the |c|^2 bias fused, then argmin
                     "library": lambda: torch.addmm(c2, x, cb.T, alpha=-2).argmin(1)}, reps=20)
-        b_ms, b_by = bound(2 * m * n * d, 4 * (m * d + n * d + m))
-        rows[(m, n, d)] = {k: v[0] for k, v in t.items()} | {"bound": b_ms, "bound_by": b_by}
-        print(f"time [{card}]: nearest_codes ({m},{n},{d}) kernel {t['kernel'][0]:.4f} ms "
-              f"(windows {t['kernel'][1][0]:.4f}, {t['kernel'][1][1]:.4f}), plain matmul+argmin "
-              f"{t['plain'][0]:.4f} ms, addmm+argmin {t['library'][0]:.4f} ms; bound "
-              f"{b_ms:.4f} ms ({b_by})")
-    b1 = rows[(8192, 1024, 256)]
+        b_ms, b_by, ffma = bound_3xtf32(m, n, d, 4 * (m * d + n * d + m))
+        dev_ms = sum(device_ms(lambda: vq_cuda.nearest_codes_cuda(x, cb),
+                               "nearest_codes").values()) or None
+        lib_dev = sum(device_ms(lambda: torch.addmm(c2, x, cb.T, alpha=-2).argmin(1),
+                                "").values()) or None
+        rows[(m, n, d)] = {k: v[0] for k, v in t.items()} | {"bound": b_ms, "bound_by": b_by,
+                                                             "device": dev_ms}
+        k_ms, l_ms = t["kernel"][0], t["library"][0]
+        print(f"time [{card}]: nearest_codes ({m},{n},{d}) kernel {k_ms:.4f} ms "
+              f"(windows {t['kernel'][1][0]:.4f}, {t['kernel'][1][1]:.4f}; device time of the "
+              f"scan + merge {_ms(dev_ms)}), plain matmul+argmin {t['plain'][0]:.4f} ms, "
+              f"addmm+argmin {l_ms:.4f} ms (device time {_ms(lib_dev)}); bound {b_ms:.4f} ms "
+              f"({b_by}, at the 3xTF32 tensor-core rate; the scan's device time reaches "
+              f"{_reach(b_ms, dev_ms)} of it), FFMA bound {ffma:.4f} ms; kernel "
+              f"{'below' if k_ms < l_ms else 'NOT below'} addmm+argmin")
+    _scan_sweep(device, card)
+    b1 = rows[B1_TIMED[0]]
 
     m, n, d = STATS_SHAPES[0]
     x = torch.randn(m, d, device=device, generator=gen)
@@ -469,12 +626,20 @@ def phase_times(cfg, model, device, card: str):
     t = _turns({"plain": lambda: nearest_codes_stats_reference(x, cb),
                 "kernel": lambda: vq_cuda.nearest_codes_stats_cuda(x, cb),
                 "library": library_stats}, reps=10)
-    b_ms, b_by = bound(2 * m * n * d + m * d, 4 * (m * d + n * d + m + n + n * d))
-    b2 = {k: v[0] for k, v in t.items()} | {"bound": b_ms, "bound_by": b_by}
-    print(f"time [{card}]: nearest_codes_stats ({m},{n},{d}) kernel {t['kernel'][0]:.4f} ms "
-          f"(windows {t['kernel'][1][0]:.4f}, {t['kernel'][1][1]:.4f}), plain "
-          f"{t['plain'][0]:.4f} ms, matmul+argmin+bincount+index_add_ {t['library'][0]:.4f} ms; "
-          f"bound {b_ms:.4f} ms ({b_by})")
+    b_ms, b_by, ffma = bound_3xtf32(m, n, d, 4 * (m * d + n * d + m + n + n * d),
+                                    fp32_flops=m * d)
+    parts = device_ms(lambda: vq_cuda.nearest_codes_stats_cuda(x, cb), "nearest_codes_stats")
+    dev_ms = sum(parts.values()) or None
+    b2 = {k: v[0] for k, v in t.items()} | {"bound": b_ms, "bound_by": b_by, "device": dev_ms}
+    k_ms, l_ms = t["kernel"][0], t["library"][0]
+    print(f"time [{card}]: nearest_codes_stats ({m},{n},{d}) kernel {k_ms:.4f} ms "
+          f"(windows {t['kernel'][1][0]:.4f}, {t['kernel'][1][1]:.4f}; device time "
+          f"{_ms(dev_ms)}: " + ", ".join(f"{_short(k)} {v:.4f}" for k, v in parts.items())
+          + f"), plain "
+          f"{t['plain'][0]:.4f} ms, matmul+argmin+bincount+index_add_ {l_ms:.4f} ms; "
+          f"bound {b_ms:.4f} ms ({b_by}, at the 3xTF32 tensor-core rate; the device time "
+          f"reaches {_reach(b_ms, dev_ms)} of it), FFMA bound {ffma:.4f} ms; kernel "
+          f"{'below' if k_ms < l_ms else 'NOT below'} the composition")
     # the sums' pass splits the work by code: rows piled on one code fall on one block
     skewed = cb[7] + 0.01 * torch.randn(m, d, device=device, generator=gen)
     used = int((vq_cuda.nearest_codes_stats_cuda(skewed, cb)[1] > 0).sum())
@@ -786,6 +951,11 @@ def _record(name, source, replaces, launches, max_abs_err, shape, t) -> dict:
             "library_ms": t["library"], "shape": list(shape)}
 
 
+def _scan_bound(t) -> dict:
+    return {"bound_ops": "3xTF32: 3 TF32 passes x 2MND at 495 TFLOP/s",
+            "device_ms": t["device"]}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is visible; this script runs only on a GPU")
@@ -813,12 +983,16 @@ def main() -> None:
         # launches: the tokenizer path's plus the training path's; max_abs_err:
         # the largest float64 score gap between the kernel's and the plain
         # version's pick over every compared row (0.0 where all agree)
+        # bound_ms: 3 TF32 passes x 2MND on the tensor cores (bound_ops; the
+        # FFMA bound is in the time lines); device_ms: the kernels' device
+        # time (profiler), ms: CUDA events around the wrapper
         _record("nearest_codes", "vqvae_tpu_torch/csrc/nearest_codes.cu",
                 "vqvae_tpu/ops/vq_pallas.py:141", b1_tokenizer + b1_train,
-                max(kernel_gap, slice_gap), (8192, 1024, 256), b1),
+                max(kernel_gap, slice_gap), (8192, 1024, 256), b1) | _scan_bound(b1),
         # max_abs_err: the largest |dw - dw_plain| over the compared shapes
         _record("nearest_codes_stats", "vqvae_tpu_torch/csrc/nearest_codes_stats.cu",
-                "vqvae_tpu/ops/vq_pallas.py:89", b2_train, stats_err, STATS_SHAPES[0], b2),
+                "vqvae_tpu/ops/vq_pallas.py:89", b2_train, stats_err, STATS_SHAPES[0], b2)
+        | _scan_bound(b2),
         # launches: the GAN path's 8 train steps; max_abs_err: the largest
         # |kernel - plain| over every compared shape, fp32 and bf16 (bf16 is
         # one bf16 ulp); times at the first block's shape in bf16, the

@@ -5,6 +5,8 @@ in interpret mode, and the Hopper kernels against the plain versions on the
 card (tests marked ``cuda``, skipped without one).
 """
 
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,7 +17,9 @@ from vqvae_tpu.ops.vq_pallas import nearest_codes_pallas, nearest_codes_stats_pa
 from vqvae_tpu_torch.ops import _build
 from vqvae_tpu_torch.ops.vq import (code_mismatches, nearest_codes, nearest_codes_reference,
                                     nearest_codes_stats, nearest_codes_stats_reference)
-from vqvae_tpu_torch.ops.vq_cuda import nearest_codes_cuda, nearest_codes_stats_cuda
+from vqvae_tpu_torch.ops.vq_cuda import (BM, BN, NEAR_RTOL, code_ranges, listed_rows,
+                                         nearest_codes_cuda, nearest_codes_stats_cuda,
+                                         scan_scratch, scan_splits, scratch_pointers)
 
 torch.set_num_threads(1)
 
@@ -159,6 +163,143 @@ def test_non_cpu_tensors_reach_the_kernel_contiguous(monkeypatch):
     assert nearest_codes.launches == 0
 
 
+def _tf32_rna(a: np.ndarray) -> np.ndarray:
+    """fp32 -> TF32 (10 mantissa bits), to nearest with ties away from zero,
+    as ``cvt.rna.tf32.f32``; inf and NaN pass through."""
+    a = np.asarray(a, dtype=np.float32)
+    bits = a.view(np.uint32)
+    rounded = (bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)
+    return np.where(np.isfinite(a), rounded, bits).astype(np.uint32).view(np.float32)
+
+
+def test_tf32_rna_helper():
+    v = np.array([1 + 2 ** -11, -(1 + 2 ** -11), 1 + 2 ** -12, 1 + 3 * 2 ** -11, 1 + 2 ** -10,
+                  np.inf, -np.inf, np.nan], dtype=np.float32)
+    want = [1 + 2 ** -10, -(1 + 2 ** -10), 1.0, 1 + 2 ** -9, 1 + 2 ** -10, np.inf, -np.inf, np.nan]
+    np.testing.assert_array_equal(_tf32_rna(v), np.array(want, dtype=np.float32))
+    r = _tf32_rna(np.random.RandomState(0).randn(1000).astype(np.float32))
+    assert not (r.view(np.uint32) & np.uint32(0x1FFF)).any()   # 13 low bits clear
+
+
+def _split_tf32(a: np.ndarray):
+    """The kernel's split of finite values: a = hi + lo, both rounded to TF32."""
+    hi = _tf32_rna(a)
+    return torch.from_numpy(hi), torch.from_numpy(_tf32_rna((a - hi).astype(np.float32)))
+
+
+@pytest.mark.parametrize("seed,m,n,d", [(0, 8192, 1024, 256), (1, 2048, 4096, 256)])
+def test_tf32_split_keeps_the_plain_codes(seed, m, n, d):
+    """The scan's 3xTF32 product (hi.hi + (hi.lo + lo.hi), fp32 sums),
+    emulated with fp32 matmuls on TF32-rounded operands, picks the plain
+    version's code on every row; one TF32 pass (hi.hi) does not."""
+    rs = np.random.RandomState(seed)
+    cb = rs.randn(n, d).astype(np.float32)
+    ct = torch.from_numpy(cb)
+    c2 = (ct ** 2).sum(1)
+    ch, cl = _split_tf32(cb)
+    one_pass_misses = 0
+    for x in (rs.randn(m, d).astype(np.float32),
+              (cb[rs.randint(0, n, m)] + 0.05 * rs.randn(m, d)).astype(np.float32)):
+        xt = torch.from_numpy(x)
+        want = nearest_codes_reference(xt, ct)
+        xh, xl = _split_tf32(x)
+        big = xh @ ch.T
+        three = (c2[None] - 2 * (big + (xh @ cl.T + xl @ ch.T))).argmin(1).int()
+        assert code_mismatches(xt, ct, three, want) == (0, 0, 0.0)
+        one = (c2[None] - 2 * big).argmin(1).int()
+        one_pass_misses += code_mismatches(xt, ct, one, want)[0]
+    assert one_pass_misses > 0
+
+
+def _listed_near_ties(x: np.ndarray, cb: np.ndarray):
+    """The emulated 3xTF32 codes and the rows the kernel rescores: those whose
+    best two scores lie within NEAR_RTOL (|x| max|c| + |best|)."""
+    xt, ct = torch.from_numpy(x), torch.from_numpy(cb)
+    xh, xl = _split_tf32(x)
+    ch, cl = _split_tf32(cb)
+    c2 = (ct ** 2).sum(1)
+    scores = c2[None] - 2 * (xh @ ch.T + (xh @ cl.T + xl @ ch.T))
+    top2 = scores.topk(2, dim=1, largest=False).values
+    scale = ((xt ** 2).sum(1) * c2.max()).sqrt() + top2[:, 0].abs()
+    listed = top2[:, 1] - top2[:, 0] <= NEAR_RTOL * scale
+    return scores.argmin(1).int(), listed
+
+
+def test_near_tie_bound_covers_every_flip():
+    """Where the emulated 3xTF32 scores pick another code than the plain fp32
+    version (latents between near-duplicate codes), the row is on the
+    kernel's rescoring list; Gaussian latents against a Gaussian codebook,
+    or against one far smaller, are rarely on it."""
+    rs = np.random.RandomState(2)
+    m, n, d = 2048, 512, 256
+    cb = rs.randn(n, d).astype(np.float32)
+    cb[1::2] = cb[0::2] + 1e-3 * rs.randn(n // 2, d).astype(np.float32)
+    pair = 2 * rs.randint(0, n // 2, m)
+    x = (0.5 * (cb[pair] + cb[pair + 1]) + 0.01 * rs.randn(m, d)).astype(np.float32)
+    codes, listed = _listed_near_ties(x, cb)
+    flips = codes != nearest_codes_reference(torch.from_numpy(x), torch.from_numpy(cb))
+    assert flips.sum() > 0 and bool(listed[flips].all())
+    x, cb = _gaussian(3, m, n, d)
+    assert _listed_near_ties(x, cb)[1].float().mean() < 0.01
+    # a codebook far smaller than the latents, as at initialisation
+    assert _listed_near_ties(x, cb / n)[1].float().mean() < 0.01
+
+
+@pytest.mark.parametrize("m,n", [(8192, 1024), (8192, 4096), (256, 1024), (256, 4096),
+                                 (4097, 1024), (1000, 37), (1, 5), (65536, 1024),
+                                 (8192, 16384), (8192, 1000)])
+def test_scan_split_fills_the_card(m, n):
+    """The wrapper's split of the codebook into ranges: as many as one wave
+    of one block per SM of a 132-SM card holds (the scan holds one block per
+    SM), at least one and at most one per code; whole code tiles per range
+    where the tiles divide evenly; the ranges cover [0, n) in order, none
+    empty; one partial (score, second score, index) per range and row, a
+    rescoring list of m rows, its count, the bits of max |c|^2 and a key per
+    listed row, laid out in one buffer."""
+    sms = 132
+    splits = scan_splits(m, n, sms)
+    row_tiles = -(-m // BM)
+    assert 1 <= splits <= n
+    assert row_tiles * splits <= max(sms, row_tiles)
+    assert splits == n or row_tiles * (splits + 1) > sms
+    ranges = code_ranges(n, splits)
+    assert ranges[0][0] == 0 and ranges[-1][1] == n
+    assert all(lo < hi for lo, hi in ranges)
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    if n % BN == 0 and (n // BN) % splits == 0:
+        assert all(lo % BN == 0 for lo, _ in ranges)
+    scratch = scan_scratch(m, splits, "cpu")
+    score, second, index, rows, count, keys = scratch_pointers(scratch, m, splits)
+    assert keys == scratch.data_ptr() and score - keys == 8 * m and keys % 8 == 0
+    assert second - score == index - second == rows - index == 4 * splits * m
+    assert count - rows == 4 * m and count + 8 == scratch.data_ptr() + scratch.numel()
+    scratch.zero_()
+    scratch[count - keys:count - keys + 4].view(torch.int32)[0] = 7
+    assert listed_rows(scratch, m, splits) == 7
+
+
+def test_scan_split_examples():
+    """8192 rows (64 row tiles) split N = 1024 into 2 ranges of 4 code tiles
+    (128 blocks, one wave) and N = 4096 into 2 of 16 tiles; 256 rows (2 row
+    tiles) split N = 1024 into 66 ranges of 15-16 codes (132 blocks, one per
+    SM); past 132 row tiles the codebook is one range."""
+    assert scan_splits(8192, 1024, 132) == 2
+    assert code_ranges(4096, scan_splits(8192, 4096, 132)) == [(0, 2048), (2048, 4096)]
+    assert scan_splits(256, 1024, 132) == 66
+    assert {hi - lo for lo, hi in code_ranges(1024, 66)} == {15, 16}
+    assert scan_splits(65536, 1024, 132) == 1
+
+
+@pytest.mark.parametrize("name,value", [("BM", BM), ("BN", BN), ("NEAR_RTOL", NEAR_RTOL)])
+def test_wrapper_constants_match_the_header(name, value):
+    """The wrapper's copies of the scan's tile sizes and near-tie bound, on
+    which its split, its scratch and the CPU emulation above rest, hold the
+    values ``nearest_codes.cuh`` compiles with."""
+    header = (_build.CSRC_DIR / "nearest_codes.cuh").read_text()
+    found = re.search(rf"constexpr (?:int|float) {name} = ([0-9.e+-]+)f?;", header)
+    assert found is not None and float(found.group(1)) == value
+
+
 def test_cuda_wrapper_rejects_cpu_tensors():
     x, cb = _gaussian(7, 8, 4, 4)
     with pytest.raises(ValueError, match="CUDA tensor"):
@@ -235,6 +376,19 @@ def test_kernel_matches_plain_version_on_card():
     x[:8] = cb[3]
     x[10, 2] = float("nan")
     torch.testing.assert_close(nearest_codes(x, cb), nearest_codes_reference(x, cb))
+    # a duplicated codebook row whose copies fall in different code ranges of
+    # the scan: the first index wins across ranges too
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for m, n, d, i, j in [(256, 1024, 256, 5, 900), (8192, 1024, 256, 511, 512)]:
+        x, cb = (torch.from_numpy(a).cuda() for a in _gaussian(10, m, n, d))
+        ranges = code_ranges(n, scan_splits(m, n, sms))
+        assert len({r for r, (lo, hi) in enumerate(ranges) for c in (i, j) if lo <= c < hi}) == 2
+        cb[j] = cb[i]
+        x[: m // 4] = cb[i]
+        got = nearest_codes(x, cb)
+        assert (got[: m // 4] == i).all()
+        n_mis, n_bad, _ = code_mismatches(x, cb, got, nearest_codes_reference(x, cb))
+        assert n_bad == 0 and n_mis <= 1e-4 * m
     before = nearest_codes.launches
     assert nearest_codes(x[:0], cb).shape == (0,)  # an empty batch launches nothing
     assert nearest_codes.launches == before

@@ -24,8 +24,10 @@ _PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR / "_build"
 
+# -Xptxas -v: the compiler's report of each kernel's registers, shared memory
+# and spills, which ``build`` returns
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -57,9 +59,10 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build(names) -> None:
+def build(names) -> dict[str, str]:
     """Build every library of ``names`` that is missing, one nvcc each, all
-    started together; raises if any build fails."""
+    started together; raises if any build fails. Returns nvcc's output of
+    each library it built (ptxas's per-kernel report among it)."""
     jobs = []
     nvcc = None
     for name in names:
@@ -76,6 +79,7 @@ def build(names) -> None:
                                 text=True)
         jobs.append((name, so, tmp, cmd, proc))
     failures = []
+    reports = {}
     for name, so, tmp, cmd, proc in jobs:
         out, _ = proc.communicate()
         if proc.returncode != 0:
@@ -84,8 +88,10 @@ def build(names) -> None:
                             f"{' '.join(cmd)}\n{out}")
         else:
             os.replace(tmp, so)
+            reports[name] = out
     if failures:
         raise RuntimeError("\n".join(failures))
+    return reports
 
 
 def load_library(name: str) -> ctypes.CDLL:
