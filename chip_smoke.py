@@ -11,7 +11,9 @@ exit and no result line:
 1. device: card name and power limit (nvidia-smi); TF32 off for matmuls and
    convolutions, so that fp32 means fp32;
 2. build: the time nvcc takes, and ptxas's registers, shared memory and
-   spills of each nearest-code kernel;
+   spills of each kernel (B1, B2, and B3 / B4 by element type and columns
+   per lane: B3 8 output columns on the vector path, B4 4 dYs columns, 1 on
+   their scalar paths);
 3. B1 vs plain: the nearest-code kernel against ``nearest_codes_reference``
    at the tokenizer's shapes and at ragged ones (an odd D, a latent buffer
    that is not 16-byte aligned); a duplicated codebook row whose copies fall
@@ -52,7 +54,9 @@ exit and no result line:
 9. times: CUDA events, warm-up, median of 5 windows: B1 (also at the
    batch-1 shape) and B2 against their plain versions and a PyTorch
    composition, beside their 3xTF32 and FFMA bounds, the tokenizer calls, the
-   train step; B3 and B4 at the first block's shape against theirs; the GAN
+   train step; B3 and B4 at every D block shape in fp32 and bf16 against
+   theirs (and the kernels' device time), with each shape's launches per
+   GAN step and, per step, the sum of launches x (time - bound); the GAN
    step, R1 and not, fused and plain, in bf16 and fp32 (3 windows after a
    warm-up for a non-R1 step, 1 window for an R1 step).
 
@@ -63,6 +67,7 @@ non-zero before doing anything.
 
 from __future__ import annotations
 
+import collections
 import functools
 import json
 import math
@@ -183,8 +188,16 @@ def ptxas_summary(report: str) -> list[str]:
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
             kernel = re.search(r"(nearest_codes[a-z_]*?_kernel)(ILb([01])E)?", entry.group(1))
-            name = kernel.group(1) + (f"<{'true' if kernel.group(3) == '1' else 'false'}>"
-                                      if kernel.group(2) else "") if kernel else entry.group(1)
+            dbwd = re.search(r"(blur_t_gate_kernel|skip_fanout_bwd_kernel)I(f|13__nv_bfloat16)"
+                             r"Li(\d+)E", entry.group(1))
+            if dbwd:
+                dtype = "float" if dbwd.group(2) == "f" else "bf16"
+                name = f"{dbwd.group(1)}<{dtype}, {dbwd.group(3)}>"
+            elif kernel:
+                name = kernel.group(1) + (f"<{'true' if kernel.group(3) == '1' else 'false'}>"
+                                          if kernel.group(2) else "")
+            else:
+                name = entry.group(1)
         elif "spill stores" in line:
             spill = line.strip()
         elif "Used" in line and "registers" in line and name:
@@ -205,7 +218,7 @@ def phase_build() -> None:
     print(f"build: {', '.join(f'{n}.cu' for n in names)}: {len(fresh)} built, in parallel, "
           f"in {time.perf_counter() - t0:.2f} s -> "
           f"{', '.join(str(_build.library_path(n).relative_to(ROOT)) for n in names)}")
-    for lib in ("nearest_codes", "nearest_codes_stats"):
+    for lib in ("nearest_codes", "nearest_codes_stats", "fused_dbwd"):
         for line in ptxas_summary(reports.get(lib, "")):
             print(f"ptxas {lib}.cu: {line}")
 
@@ -453,7 +466,7 @@ def phase_train(cfg, device, card: str):
         first = _FirstQuantizerCall(state.model.quantizer) if dtype == torch.float32 else None
         history = []
         for _ in range(TRAIN_STEPS):
-            state, metrics = trainer.train_step(state, batch)
+            state, metrics = trainer.train_step(state, batch, epoch=0)
             history.append(metrics)
             if first is not None:
                 torch.cuda.synchronize()
@@ -482,7 +495,8 @@ def phase_train(cfg, device, card: str):
     trainer, state = trainers[torch.float32], states[torch.float32]
     mask = torch.ones(TRAIN_BATCH, dtype=torch.bool, device=device)
     mask[-3:] = False
-    metrics, usage, recon = trainer.eval_step(state, {"image": batch["image"], "mask": mask})
+    metrics, usage, recon = trainer.eval_step(state, {"image": batch["image"], "mask": mask},
+                                              epoch=0)
     tokens = state.model.get_tokens(batch["image"])
     torch.cuda.synchronize()
     b1 = nearest_codes.launches
@@ -508,7 +522,7 @@ def phase_train(cfg, device, card: str):
 
     for dtype, trainer in trainers.items():
         state = states[dtype]
-        ms = cuda_ms(lambda: trainer.train_step(state, batch), reps=1)
+        ms = cuda_ms(lambda: trainer.train_step(state, batch, epoch=0), reps=1)
         print(f"time [{card}]: train_step ema {str(dtype).removeprefix('torch.')} batch "
               f"{TRAIN_BATCH}: {ms:.2f} ms, {TRAIN_BATCH * 1000 / ms:.1f} images/s")
     return b1, b2
@@ -750,6 +764,32 @@ def _reset_counts():
     fused_dbwd.blur_t_gate.launches = fused_dbwd.skip_fanout_bwd.launches = 0
 
 
+class _ShapeTally:
+    """Counts B3's and B4's launches by kernel and shape while it is entered:
+    the wrappers stay the ones that launch (and count) the kernels."""
+
+    def __init__(self):
+        self.counts = collections.Counter()
+
+    def __enter__(self):
+        self._real = fused_dbwd_cuda.blur_t_gate_cuda, fused_dbwd_cuda.skip_fanout_bwd_cuda
+        real_b3, real_b4 = self._real
+
+        def b3(dy, p0, *args):
+            self.counts[("B3", tuple(p0.shape))] += 1
+            return real_b3(dy, p0, *args)
+
+        def b4(dc, dys, *args):
+            self.counts[("B4", tuple(dc.shape))] += 1
+            return real_b4(dc, dys, *args)
+
+        fused_dbwd_cuda.blur_t_gate_cuda, fused_dbwd_cuda.skip_fanout_bwd_cuda = b3, b4
+        return self
+
+    def __exit__(self, *exc):
+        fused_dbwd_cuda.blur_t_gate_cuda, fused_dbwd_cuda.skip_fanout_bwd_cuda = self._real
+
+
 def _grad_shares(a: dict, b: dict) -> dict:
     """Per tensor: max |a - b| over max |b|, that at least 1e-3 of the module's
     largest gradient entry (a bias just before a GroupNorm has a gradient
@@ -770,7 +810,7 @@ def phase_gan(cfg, device, card: str):
     epoch = adv.start_epoch
     lr = cfg.training.scaled_lr()
     n_blocks = len(range(int(math.log2(size)), 2, -1))
-    runs = {}
+    runs, shape_launches = {}, {}
     _reset_counts()
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).removeprefix("torch.")
@@ -784,11 +824,14 @@ def phase_gan(cfg, device, card: str):
         history, per_step = [], []
         for i in range(GAN_STEPS):
             before = _dbwd_counts()
-            state, metrics = trainer.train_step(state, batch, epoch=epoch)
+            with _ShapeTally() as tally:
+                state, metrics = trainer.train_step(state, batch, epoch=epoch)
             torch.cuda.synchronize()
             after = _dbwd_counts()
             per_step.append((after[0] - before[0], after[1] - before[1]))
             history.append({k: float(v) for k, v in metrics.items()})
+            if dtype == torch.bfloat16 and i < 2:   # host step 0 is R1, 1 is not
+                shape_launches["R1" if i == 0 else "non-R1"] = tally.counts
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         check(all(math.isfinite(v) for m in history for v in m.values()),
               f"gan slice {name}: every metric finite")
@@ -814,6 +857,9 @@ def phase_gan(cfg, device, card: str):
     check(b3 > 0 and b4 > 0, "the GAN path launched B3 and B4")
     print(f"gan slice: {2 * GAN_STEPS} train steps launched blur_t_gate {b3} times, "
           f"skip_fanout_bwd {b4} times, nearest_codes 0, nearest_codes_stats 0")
+    for kind, counts in shape_launches.items():
+        print(f"gan slice bf16 {kind} step: launches by shape "
+              + ", ".join(f"{k} {shape} x{n}" for (k, shape), n in sorted(counts.items())))
 
     # the composed-program check: one non-R1 fp32 step from the same weights,
     # batch and noise, fused against plain
@@ -860,7 +906,7 @@ def phase_gan(cfg, device, card: str):
           and float(metrics["gen_loss"]) > 0 and float(metrics["disc_loss"]) > 0,
           "gan eval_step: finite metrics, G and D losses, masked usage")
     print(f"gan eval_step fp32: {{{', '.join(f'{k}: {float(v):.5f}' for k, v in metrics.items())}}}")
-    return b3, b4, runs, batch
+    return b3, b4, runs, batch, shape_launches
 
 
 def phase_gan_times(cfg, runs, batch, card: str) -> None:
@@ -890,58 +936,94 @@ def phase_gan_times(cfg, runs, batch, card: str) -> None:
         state.disc.set_fused(True, True)
 
 
-def phase_dbwd_times(device, card: str) -> dict:
-    """B3 and B4 at the first block's shape (batch 32, C 128, 256^2), fp32 and
-    bf16: kernel, plain version, one PyTorch composition, bound by bytes."""
+def phase_dbwd_times(device, card: str, shape_launches: dict) -> dict:
+    """B3 and B4 at every D block shape (batch 32), fp32 and bf16: kernel (CUDA
+    events around the wrapper, and the kernel's device time from the
+    profiler), plain version, one PyTorch composition, bound by bytes, and
+    the device time of B3's counter memset; the launches of each shape in a GAN step (from ``phase_gan``) and, per step,
+    the sum of launches x (time - bound). Returns {(kernel, dtype, shape):
+    times}."""
     gen = torch.Generator(device=device).manual_seed(SEED + 7)
-    c, h = DBWD_BLOCKS[0]
-    b, w = DBWD_BATCH, h
     alpha, gain = 0.2, math.sqrt(2)
     t4 = torch.tensor(fused_dbwd.TAPS, device=device)
     f2d = torch.outer(t4, t4)
     rows = {}
+    for c, h in DBWD_BLOCKS:
+        b, w = DBWD_BATCH, h
+        shape = (b, c, h, w)
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).removeprefix("torch.")
+            size = torch.finfo(dtype).bits // 8
+            dy = torch.randn(b, c, h + 1, w + 1, device=device, generator=gen).to(dtype)
+            p0 = torch.randn(b, c, h, w, device=device, generator=gen).to(dtype)
+            b0 = torch.randn(c, device=device, generator=gen)
+            wdw = f2d.to(dtype)[None, None].expand(c, 1, 4, 4).contiguous()
+
+            def library_b3():
+                da = torch.nn.functional.conv2d(dy, wdw, padding=1, groups=c)
+                s = p0 + b0.to(dtype)[None, :, None, None]
+                dp = da * torch.where(s >= 0, gain, gain * alpha).to(dtype)
+                return dp, dp.float().sum((0, 2, 3))
+
+            def kernel_b3():
+                return fused_dbwd_cuda.blur_t_gate_cuda(dy, p0, b0, fused_dbwd.TAPS, alpha, gain)
+
+            t = _turns({"plain": lambda: fused_dbwd.blur_t_gate_reference(dy, p0, b0),
+                        "kernel": kernel_b3, "library": library_b3}, reps=10)
+            n = b * c * h * w
+            b_ms, b_by = bound(19 * n, size * (b * c * (h + 1) * (w + 1) + 2 * n) + 8 * c)
+            events = device_ms(kernel_b3, "")
+            dev = sum(ms for k, ms in events.items() if "blur_t_gate_kernel" in k) or None
+            zeroing = sum(ms for k, ms in events.items() if "emset" in k) or None
+            rows[("B3", dtype, shape)] = ({k: v[0] for k, v in t.items()}
+                                          | {"bound": b_ms, "bound_by": b_by, "device": dev})
+            _print_dbwd(card, "blur_t_gate", shape, name, t, b_ms, b_by, dev,
+                        "depthwise conv2d + where + sum", shape_launches, ("B3", shape))
+            print(f"time [{card}]: blur_t_gate {shape} {name}: device time of the memset "
+                  f"that zeroes its {c} arrival counters before each launch (in the kernel's "
+                  f"time) {_ms(zeroing)}")
+            del dy, p0
+            dc = torch.randn(b, c, h, w, device=device, generator=gen).to(dtype)
+            dys = torch.randn(b, c, h // 2, w // 2, device=device, generator=gen).to(dtype)
+
+            def kernel_b4():
+                return fused_dbwd_cuda.skip_fanout_bwd_cuda(dc, dys, fused_dbwd.TAPS)
+
+            t = _turns({"plain": lambda: fused_dbwd.skip_fanout_bwd_reference(dc, dys),
+                        "kernel": kernel_b4,
+                        "library": lambda: dc + torch.nn.functional.conv_transpose2d(
+                            dys, wdw, stride=2, padding=1, groups=c)}, reps=10)
+            b_ms, b_by = bound(13 * n, size * (2 * n + n // 4))
+            dev = sum(device_ms(kernel_b4, "skip_fanout_bwd_kernel").values()) or None
+            rows[("B4", dtype, shape)] = ({k: v[0] for k, v in t.items()}
+                                          | {"bound": b_ms, "bound_by": b_by, "device": dev})
+            _print_dbwd(card, "skip_fanout_bwd", shape, name, t, b_ms, b_by, dev,
+                        "conv_transpose2d + add", shape_launches, ("B4", shape))
+            del dc, dys
+            torch.cuda.empty_cache()
+    # per GAN step: launches x (time - bound), summed over the shapes
     for dtype in (torch.float32, torch.bfloat16):
-        name = str(dtype).removeprefix("torch.")
-        size = torch.finfo(dtype).bits // 8
-        dy = torch.randn(b, c, h + 1, w + 1, device=device, generator=gen).to(dtype)
-        p0 = torch.randn(b, c, h, w, device=device, generator=gen).to(dtype)
-        b0 = torch.randn(c, device=device, generator=gen)
-        wdw = f2d.to(dtype)[None, None].expand(c, 1, 4, 4).contiguous()
-
-        def library_b3():
-            da = torch.nn.functional.conv2d(dy, wdw, padding=1, groups=c)
-            s = p0 + b0.to(dtype)[None, :, None, None]
-            dp = da * torch.where(s >= 0, gain, gain * alpha).to(dtype)
-            return dp, dp.float().sum((0, 2, 3))
-
-        t = _turns({"plain": lambda: fused_dbwd.blur_t_gate_reference(dy, p0, b0),
-                    "kernel": lambda: fused_dbwd_cuda.blur_t_gate_cuda(
-                        dy, p0, b0, fused_dbwd.TAPS, alpha, gain),
-                    "library": library_b3}, reps=10)
-        n = b * c * h * w
-        b_ms, b_by = bound(19 * n, size * (b * c * (h + 1) * (w + 1) + 2 * n) + 8 * c)
-        rows[("B3", dtype)] = {k: v[0] for k, v in t.items()} | {"bound": b_ms, "bound_by": b_by}
-        print(f"time [{card}]: blur_t_gate ({b},{c},{h},{w}) {name} kernel {t['kernel'][0]:.4f} "
-              f"ms (windows {t['kernel'][1][0]:.4f}, {t['kernel'][1][1]:.4f}), plain "
-              f"{t['plain'][0]:.4f} ms, depthwise conv2d + where + sum {t['library'][0]:.4f} ms; "
-              f"bound {b_ms:.4f} ms ({b_by})")
-        del dy, p0
-        dc = torch.randn(b, c, h, w, device=device, generator=gen).to(dtype)
-        dys = torch.randn(b, c, h // 2, w // 2, device=device, generator=gen).to(dtype)
-        t = _turns({"plain": lambda: fused_dbwd.skip_fanout_bwd_reference(dc, dys),
-                    "kernel": lambda: fused_dbwd_cuda.skip_fanout_bwd_cuda(
-                        dc, dys, fused_dbwd.TAPS),
-                    "library": lambda: dc + torch.nn.functional.conv_transpose2d(
-                        dys, wdw, stride=2, padding=1, groups=c)}, reps=10)
-        b_ms, b_by = bound(13 * n, size * (2 * n + n // 4))
-        rows[("B4", dtype)] = {k: v[0] for k, v in t.items()} | {"bound": b_ms, "bound_by": b_by}
-        print(f"time [{card}]: skip_fanout_bwd ({b},{c},{h},{w}) {name} kernel "
-              f"{t['kernel'][0]:.4f} ms (windows {t['kernel'][1][0]:.4f}, "
-              f"{t['kernel'][1][1]:.4f}), plain {t['plain'][0]:.4f} ms, conv_transpose2d + add "
-              f"{t['library'][0]:.4f} ms; bound {b_ms:.4f} ms ({b_by})")
-        del dc, dys
-        torch.cuda.empty_cache()
+        for kind, counts in shape_launches.items():
+            for k in ("B3", "B4"):
+                lost = [n * (rows[(k, dtype, shape)]["kernel"] - rows[(k, dtype, shape)]["bound"])
+                        for (kk, shape), n in counts.items() if kk == k]
+                busy = [n * rows[(k, dtype, shape)]["kernel"]
+                        for (kk, shape), n in counts.items() if kk == k]
+                print(f"time [{card}]: {k} {str(dtype).removeprefix('torch.')} per {kind} GAN "
+                      f"step: {sum(n for (kk, _), n in counts.items() if kk == k)} launches, "
+                      f"sum of launches x ms {sum(busy):.4f} ms, sum of launches x (ms - bound) "
+                      f"{sum(lost):.4f} ms")
     return rows
+
+
+def _print_dbwd(card, name, shape, dtype, t, b_ms, b_by, dev, library, shape_launches, key):
+    per_step = ", ".join(f"{kind} step x{counts.get(key, 0)}"
+                         for kind, counts in shape_launches.items())
+    print(f"time [{card}]: {name} {shape} {dtype} kernel {t['kernel'][0]:.4f} ms (windows "
+          f"{t['kernel'][1][0]:.4f}, {t['kernel'][1][1]:.4f}; device {_ms(dev)}), plain "
+          f"{t['plain'][0]:.4f} ms, {library} {t['library'][0]:.4f} ms; bound {b_ms:.4f} ms "
+          f"({b_by}; the kernel reaches {b_ms / t['kernel'][0]:.1%} of it, its device time "
+          f"{_reach(b_ms, dev)}); launches per GAN step: {per_step}")
 
 
 def _record(name, source, replaces, launches, max_abs_err, shape, t) -> dict:
@@ -971,13 +1053,13 @@ def main() -> None:
     b1_train, b2_train = phase_train(train_cfg, device, card)
     b3_err, b4_err = phase_dbwd_kernels(device)
     gan_cfg = load_config(str(GAN_CONFIG))
-    b3_gan, b4_gan, gan_runs, gan_batch = phase_gan(gan_cfg, device, card)
+    b3_gan, b4_gan, gan_runs, gan_batch, shape_launches = phase_gan(gan_cfg, device, card)
     b1, b2 = phase_times(cfg, model, device, card)
     phase_gan_times(gan_cfg, gan_runs, gan_batch, card)
     del gan_runs
     torch.cuda.empty_cache()
-    dbwd = phase_dbwd_times(device, card)
     b256 = (DBWD_BATCH, DBWD_BLOCKS[0][0], DBWD_BLOCKS[0][1], DBWD_BLOCKS[0][1])
+    dbwd = phase_dbwd_times(device, card, shape_launches)
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [
         # launches: the tokenizer path's plus the training path's; max_abs_err:
@@ -999,10 +1081,10 @@ def main() -> None:
         # training compute dtype
         _record("blur_t_gate", "vqvae_tpu_torch/csrc/fused_dbwd.cu",
                 "vqvae_tpu/ops/fused_dbwd.py:220", b3_gan, b3_err, b256,
-                dbwd[("B3", torch.bfloat16)]) | {"dtype": "bfloat16"},
+                dbwd[("B3", torch.bfloat16, b256)]) | {"dtype": "bfloat16"},
         _record("skip_fanout_bwd", "vqvae_tpu_torch/csrc/fused_dbwd.cu",
                 "vqvae_tpu/ops/fused_dbwd.py:386", b4_gan, b4_err, b256,
-                dbwd[("B4", torch.bfloat16)]) | {"dtype": "bfloat16"},
+                dbwd[("B4", torch.bfloat16, b256)]) | {"dtype": "bfloat16"},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

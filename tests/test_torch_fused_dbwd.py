@@ -13,6 +13,8 @@
   to the plain versions and skip here.
 """
 
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,7 +22,9 @@ import torch
 
 from vqvae_tpu.ops.fused_dbwd import (_blur_t_gate_xla, _skip_fanout_bwd_xla,
                                       blur_t_gate_pallas, skip_fanout_bwd_pallas)
+from vqvae_tpu_torch.ops import _build
 from vqvae_tpu_torch.ops import fused_dbwd as fd
+from vqvae_tpu_torch.ops import fused_dbwd_cuda as fdc
 from vqvae_tpu_torch.ops.fused_dbwd_cuda import blur_t_gate_cuda, skip_fanout_bwd_cuda
 from vqvae_tpu_torch.ops.upfirdn2d import upfirdn2d
 
@@ -209,49 +213,131 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         skip_fanout_bwd_cuda(p0[0], torch.zeros(1, 2, 2, 2), TAPS)
 
 
+# the 256^2 D's blocks at batch 32: (C, H = W)
+D_BLOCKS = [(128, 256), (256, 128), (512, 64), (512, 32), (512, 16), (512, 8)]
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("name", ["THREADS", "VEC"])
+def test_wrapper_constants_match_the_source(name):
+    source = (_build.CSRC_DIR / "fused_dbwd.cu").read_text()
+    found = re.search(rf"constexpr int {name} = (\d+);", source)
+    assert found and int(found.group(1)) == getattr(fdc, name)
+
+
+@pytest.mark.parametrize("which", ["b3", "b4"])
+@pytest.mark.parametrize("c,h", D_BLOCKS)
+def test_geometry_gives_every_lane_work_at_the_d_blocks(which, c, h):
+    """At every D block shape the vector path's workers fill their lanes
+    (8^2, 16^2 and 32^2 planes pack several planes into a warp), the grid
+    has no idle tail, and it holds MIN_WAVES blocks per SM unless the strip
+    is already one row."""
+    geo_fn = fdc.blur_t_gate_geometry if which == "b3" else fdc.skip_fanout_bwd_geometry
+    rows = h if which == "b3" else -(-h // 2)
+    geo = geo_fn(32, c, h, h, True, H100_SMS)
+    lanes = h // fdc.VEC
+    assert geo.seg_width * geo.segments == lanes
+    assert geo.blocks * (fdc.THREADS // geo.seg_width) == 32 * c * geo.segments * geo.strips
+    assert geo.strips == -(-rows // geo.strip) and 1 <= geo.strip <= fdc.MAX_STRIP
+    assert geo.blocks >= fdc.MIN_WAVES * H100_SMS or geo.strip == 1
+
+
+@pytest.mark.parametrize("w", [1, 3, 7, 9, 17, 31, 33, 65, 100, 255, 520, 1000])
+def test_geometry_on_ragged_rows(w):
+    """Scalar rows (and a wide vector row): segments are powers of two up to
+    32 lanes, more than half of a row's segment lanes have outputs, and the
+    strips cover the plane."""
+    for vec in (False, True) if w % fdc.VEC == 0 else (False,):
+        for lanes_fn, rows in ((fdc.blur_t_gate_geometry, 37), (fdc.skip_fanout_bwd_geometry, 19)):
+            geo = lanes_fn(3, 5, 37, w, vec, H100_SMS)
+            lanes = (w // fdc.VEC if vec else w if lanes_fn is fdc.blur_t_gate_geometry
+                     else -(-w // 2))
+            sw = geo.seg_width
+            assert sw & (sw - 1) == 0 and sw <= 32
+            assert geo.segments == -(-lanes // sw) and lanes > (geo.segments * sw) // 2
+            assert geo.strips * geo.strip >= rows > (geo.strips - 1) * geo.strip
+
+
+def test_vector_path_rule():
+    assert fdc.vector_path(256, True, True)
+    assert not fdc.vector_path(252, True, True)
+    assert not fdc.vector_path(256, True, False)
+    assert fdc.vector_path(8)
+
+
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     return torch.device("cuda")
 
 
+# B3 / B4 card shapes (B, C, H, W): narrow planes packed several to a warp
+# (8^2, 16^2, 32^2), a plane count that is no multiple of the planes a block
+# holds, ragged W (the scalar path), a tall plane over several strips, rows
+# wider than one segment (W 520: three segments, the last with one lane)
+CARD_SHAPES = [(2, 64, 8, 8), (3, 50, 16, 16), (2, 128, 32, 32), (1, 37, 7, 9),
+               (3, 130, 33, 65), (8, 64, 256, 256), (2, 8, 300, 520), (1, 5, 33, 40)]
+# inputs 1 element past an aligned buffer: P0 / dC so take the scalar path;
+# dY and dYs are read unaligned on the vector path too
+MISALIGNED = {"b3": ("dy", "p0"), "b4": ("dc", "dys")}
+
+
+def _card_randn(shape, dtype, gen, offset=False):
+    n = int(np.prod(shape))
+    t = torch.randn(n + int(offset), device=gen.device, generator=gen).to(dtype)
+    return t[int(offset):].view(shape)
+
+
+def _b3_case(shape, dtype, gen, offset=None):
+    b, c, h, w = shape
+    dy = _card_randn((b, c, h + 1, w + 1), dtype, gen, offset == "dy")
+    p0 = _card_randn((b, c, h, w), dtype, gen, offset == "p0")
+    return dy, p0, torch.randn(c, device=gen.device, generator=gen)
+
+
 @pytest.mark.cuda
 def test_blur_t_gate_kernel_matches_plain_version_on_card():
     dev = _card()
     gen = torch.Generator(device=dev).manual_seed(0)
-    for (b, c, h, w) in [(2, 128, 32, 32), (1, 37, 7, 9), (3, 130, 33, 65)]:
+    cases = ([(shape, None) for shape in CARD_SHAPES]
+             + [((2, 16, 24, 64), o) for o in MISALIGNED["b3"]])
+    for shape, offset in cases:
         for dtype in (torch.float32, torch.bfloat16):
-            dy = torch.randn(b, c, h + 1, w + 1, device=dev, generator=gen).to(dtype)
-            p0 = torch.randn(b, c, h, w, device=dev, generator=gen).to(dtype)
-            b0 = torch.randn(c, device=dev, generator=gen)
+            dy, p0, b0 = _b3_case(shape, dtype, gen, offset)
             before = fd.blur_t_gate.launches
             dp, db = blur_t_gate_cuda(dy, p0, b0, TAPS, ALPHA, GAIN)
             assert fd.blur_t_gate.launches == before + 1
             # the plain version on fp32 dy: the kernel's blur is unrounded
             want_dp, _ = fd.blur_t_gate_reference(dy.float(), p0, b0, TAPS, ALPHA, GAIN)
             tol = 1e-5 if dtype == torch.float32 else 1e-2
-            torch.testing.assert_close(dp.float(), want_dp.float(), rtol=tol, atol=tol)
+            torch.testing.assert_close(dp.float(), want_dp.float(), rtol=tol, atol=tol,
+                                       msg=lambda m: f"{shape} {dtype} {offset}: {m}")
             # db0 against a float64 sum with the kernel's gate: p0 + b0 in p0's dtype
             s = p0 + b0.to(dtype)[None, :, None, None]
             exact = (upfirdn2d(dy.double(), fd._f2d(TAPS), padding=1, flip_filter=True)
                      * torch.where(s >= 0, GAIN, GAIN * ALPHA).double())
             scale = exact.abs().sum((0, 2, 3))
-            assert bool(((db.double() - exact.sum((0, 2, 3))).abs() <= 1e-5 * scale).all())
+            assert bool(((db.double() - exact.sum((0, 2, 3))).abs() <= 1e-5 * scale).all()), \
+                (shape, dtype, offset)
             again = blur_t_gate_cuda(dy, p0, b0, TAPS, ALPHA, GAIN)
-            assert torch.equal(dp, again[0]) and torch.equal(db, again[1])
+            assert torch.equal(dp, again[0]) and torch.equal(db, again[1]), (shape, dtype, offset)
 
 
 @pytest.mark.cuda
 def test_skip_fanout_bwd_kernel_matches_plain_version_on_card():
     dev = _card()
     gen = torch.Generator(device=dev).manual_seed(1)
-    for (b, c, h, w) in [(2, 128, 32, 32), (1, 3, 7, 9), (2, 130, 16, 8)]:
+    cases = ([(shape, None) for shape in CARD_SHAPES + [(1, 3, 7, 9), (2, 130, 16, 8)]]
+             + [((2, 16, 24, 64), o) for o in MISALIGNED["b4"]])
+    for (b, c, h, w), offset in cases:
         for dtype in (torch.float32, torch.bfloat16):
-            dc = torch.randn(b, c, h, w, device=dev, generator=gen).to(dtype)
-            dys = torch.randn(b, c, h // 2, w // 2, device=dev, generator=gen).to(dtype)
+            dc = _card_randn((b, c, h, w), dtype, gen, offset == "dc")
+            dys = _card_randn((b, c, h // 2, w // 2), dtype, gen, offset == "dys")
             before = fd.skip_fanout_bwd.launches
             got = skip_fanout_bwd_cuda(dc, dys, TAPS)
             assert fd.skip_fanout_bwd.launches == before + 1
             want = fd.skip_fanout_bwd_reference(dc.float(), dys.float(), TAPS)
             tol = 1e-5 if dtype == torch.float32 else 1e-2
-            torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+            torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol,
+                                       msg=lambda m: f"{(b, c, h, w)} {dtype} {offset}: {m}")
+            assert torch.equal(got, skip_fanout_bwd_cuda(dc, dys, TAPS)), (b, c, h, w, dtype)

@@ -146,7 +146,10 @@ def test_chip_smoke_refuses_without_gpu():
     ("void at::native::vectorized_elementwise_kernel<4>", "elementwise"),
     ("void at::native::avg_pool2d_out_cuda_frame<float, float>", "other"),
     ("void (anonymous namespace)::blur_t_gate_kernel<float>(float const*)", "B3 blur_t_gate"),
-    ("(anonymous namespace)::channel_sum_kernel(float const*, float*, int)", "B3 blur_t_gate"),
+    ("void (anonymous namespace)::blur_t_gate_kernel<__nv_bfloat16, 8>(__nv_bfloat16 const*)",
+     "B3 blur_t_gate"),
+    ("void (anonymous namespace)::skip_fanout_bwd_kernel<float, 1>(float const*)",
+     "B4 skip_fanout_bwd"),
     ("void (anonymous namespace)::skip_fanout_bwd_kernel<__nv_bfloat16>(__nv_bfloat16 const*)",
      "B4 skip_fanout_bwd"),
 ])

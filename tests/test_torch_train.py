@@ -1,10 +1,12 @@
 """Training pieces of the PyTorch port against the JAX package on the CPU:
 LR schedules (rtol 1e-6), the AdamW optimizer with its decay split over 5
 steps (rtol 1e-6), the crop-resize of the augmentation (atol 1e-5) and the
-augmentation's distribution; the Trainer refuses what it does not carry.
+augmentation's distribution; the Trainer refuses what it does not carry, and
+its ``train_step`` / ``eval_step`` require ``epoch`` as the JAX Trainer's do.
 """
 
 import dataclasses
+import inspect
 
 import jax
 import jax.numpy as jnp
@@ -18,6 +20,7 @@ from vqvae_tpu.models import preprocess as jpre
 from vqvae_tpu.models.vqvae import VQVAE as JaxVQVAE
 from vqvae_tpu.train import optim as joptim
 from vqvae_tpu.train import schedules as jsched
+from vqvae_tpu.train.loop import Trainer as JaxTrainer
 from vqvae_tpu_torch.config import parse_config
 from vqvae_tpu_torch.models import preprocess as tpre
 from vqvae_tpu_torch.models.vqvae import VQVAE
@@ -185,7 +188,7 @@ def test_trainer_state_and_usage():
     assert state.step == 0 and state.usage_count.dtype == torch.int32
     assert not trainer.gan_active(10**6)
     images = np.random.RandomState(6).randint(0, 256, (2, 16, 16, 3)).astype(np.uint8)
-    state, metrics = trainer.train_step(state, {"image": images})
+    state, metrics = trainer.train_step(state, {"image": images}, epoch=0)
     assert state.step == 1 and int(state.usage_count.sum()) == 2 * 16
     assert set(metrics) == {"loss", "l1_loss", "l2_loss", "quant_loss", "lr"}
     assert metrics["lr"] == trainer.lr_sched(0) and all(
@@ -194,3 +197,19 @@ def test_trainer_state_and_usage():
     same = Trainer(dataclasses.replace(cfg), learning_rate=1e-3, seed=0, steps_per_epoch=10,
                    device="cpu").init_state()
     assert torch.equal(same.generator.get_state(), torch.Generator().manual_seed(0).get_state())
+
+
+@pytest.mark.parametrize("method", ["train_step", "eval_step"])
+def test_steps_require_the_epoch(method):
+    """A call without ``epoch`` raises TypeError, as the JAX Trainer's does
+    (its ``epoch`` has no default): on a config whose GAN starts at a later
+    epoch, a default of 0 would train pre-GAN forever without an error."""
+    assert (inspect.signature(getattr(JaxTrainer, method)).parameters["epoch"].default
+            is inspect.Parameter.empty)
+    trainer = Trainer(parse_config(RAW), learning_rate=1e-3, seed=0, steps_per_epoch=10,
+                      device="cpu")
+    state = trainer.init_state()
+    images = np.random.RandomState(7).rand(2, 16, 16, 3).astype(np.float32)
+    with pytest.raises(TypeError, match="epoch"):
+        getattr(trainer, method)(state, {"image": images})
+    assert state.step == 0

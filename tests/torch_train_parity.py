@@ -88,7 +88,7 @@ def run_pair(q_type: str) -> dict:
         out = {"q_type": q_type, "traj_jax": [], "traj_port": []}
         for i, b in enumerate(batches):
             state, mj = jt.train_step(state, {"image": jnp.asarray(b)}, epoch=0)
-            ts, mt = tt.train_step(ts, {"image": b})
+            ts, mt = tt.train_step(ts, {"image": b}, epoch=0)
             out["traj_jax"].append({k: float(v) for k, v in jax.device_get(mj).items()})
             out["traj_port"].append({k: float(v) for k, v in mt.items()})
             if i == 0:
@@ -102,7 +102,7 @@ def run_pair(q_type: str) -> dict:
                 # tolerance, and codes on near-ties flip)
                 images = np.random.RandomState(43).rand(BATCH, IMG, IMG, 3).astype(np.float32)
                 mj, uj, _ = jt.eval_step(state, {"image": images, "mask": EVAL_MASK}, epoch=0)
-                mt, ut, _ = tt.eval_step(ts, {"image": images, "mask": EVAL_MASK})
+                mt, ut, _ = tt.eval_step(ts, {"image": images, "mask": EVAL_MASK}, epoch=0)
                 out["eval"] = (mt, ut, jax.device_get(mj), np.asarray(uj))
         out["usage_total"] = int(ts.usage_count.sum())
     finally:

@@ -141,7 +141,7 @@ class Trainer:
             return None, None
         return self.temp_sched(step), self.kl_sched(step)
 
-    def train_step(self, state: TrainState, batch, epoch: int = 0):
+    def train_step(self, state: TrainState, batch, epoch: int):
         """-> (state, metrics); ``batch["image"]`` is a [0,1] float or uint8
         NHWC batch. The state is updated in place and returned."""
         gan = self.gan_active(epoch)
@@ -157,7 +157,7 @@ class Trainer:
             temp=temp, kl_cost=kl_cost)
         return state, metrics
 
-    def eval_step(self, state: TrainState, batch, epoch: int = 0):
+    def eval_step(self, state: TrainState, batch, epoch: int):
         """-> (metrics, usage, reconstructions); ``batch["mask"]`` (B,) bool
         marks the valid rows (all of them when absent). The gumbel noise of
         an eval step comes from a generator seeded by (seed, step), so that
