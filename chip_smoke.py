@@ -41,7 +41,8 @@ exit and no result line:
    shape of the 256^2 D at batch 32 and at ragged shapes, fp32 and bf16:
    fp32 within ``FP32_SHARE`` of the sum of the absolute terms, bf16 within
    one bf16 ulp of the fp32 value, db0 within ``DB_SHARE`` of a float64
-   sum, two launches bit-identical;
+   sum, two launches bit-identical; the block shapes also at the CLI's GAN
+   micro-batch of 16 (phase 10 (c));
 8. GAN slice: ``Trainer(gumbel_vqgan.yaml, fused_dbwd=True,
    fused_skip=True)`` at full width (the whole D, LPIPS-VGG with seeded
    random weights unless the converted .npz is present), one fixed batch of
@@ -50,7 +51,8 @@ exit and no result line:
    step only, B3 and B4 launched 12 times on the R1 step and 18 on the
    others, B1 and B2 never; then one non-R1 fp32 step's autoencoder and D
    gradients, fused against plain, within ``GRAD_SHARE`` of each tensor's
-   largest entry (or of 1e-3 of the module's, if that is larger); ``eval_step`` with the GAN active; peak memory;
+   largest entry (or of 1e-3 of the module's, if that is larger);
+   ``eval_step`` with the GAN active; peak memory;
 9. times: CUDA events, warm-up, median of 5 windows: B1 (also at the
    batch-1 shape) and B2 against their plain versions and a PyTorch
    composition, beside their 3xTF32 and FFMA bounds, the tokenizer calls, the
@@ -58,7 +60,30 @@ exit and no result line:
    theirs (and the kernels' device time), with each shape's launches per
    GAN step and, per step, the sum of launches x (time - bound); the GAN
    step, R1 and not, fused and plain, in bf16 and fp32 (3 windows after a
-   warm-up for a non-R1 step, 1 window for an R1 step).
+   warm-up for a non-R1 step, 1 window for an R1 step);
+10. cli: the port's train CLI (``vqvae_tpu_torch.cli.train.main``) in
+   process, bf16 (its default), torch's default TF32 settings, on seeded
+   uint8 256^2 images written with ``write_packed`` (``--dataloader
+   packed``, 1280 train and 40 validation images); the packed reader and
+   the LR twin must be native (g++ builds them). (a) ``ema_vqvae.yaml`` at
+   ``grad_accum_steps 8`` with reinit every epoch: one epoch, then a resume
+   from ``last/`` to a second; B2 launched exactly 8 times per optimizer
+   step, B1 by validation, every logged value finite, ``epoch_0000/``,
+   ``epoch_0001/`` and ``last/`` written, the resumed steps continuing the
+   first run's, and the epoch-1 reinit turning each dead row into a used
+   row's copy with ``codebook == ema_weight / ema_count`` (rtol 1e-6). (b)
+   ``gumbel_vqgan_1chip.yaml`` unchanged (cumulative_bs 256 = 8 x 32,
+   pre-GAN): one epoch of 5 steps; each step's time on the stream by CUDA
+   events (no synchronisation between steps, so the loop's overlap of
+   loader and copies stays), images/s, the loop's own logged
+   ``train/images_per_sec``, and the peak memory of training and of
+   validation. (c) that config with the GAN from
+   epoch 0, ``use_adaptive: true``, cumulative_bs 32 at ``grad_accum_steps
+   2`` and ``VQVAE_TPU_FUSED_DBWD=1 VQVAE_TPU_FUSED_SKIP=1``: two steps (R1,
+   then not) on 64 images; B3 and B4 launched, ``g_weight`` finite and > 0,
+   R1 > 0 on step 0 only; then one non-R1 fp32 step of that config (TF32
+   off) on 32 of its images, fused against plain: every gradient and the
+   adaptive ``g_weight`` within ``GRAD_SHARE``.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a visible CUDA device it exits
@@ -71,28 +96,39 @@ import collections
 import functools
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from contextlib import ExitStack, contextmanager
 from pathlib import Path
+from unittest import mock
 
+import numpy as np
 import torch
+import yaml
 
 from vqvae_tpu_torch import load_config, profile_tokenizer
+from vqvae_tpu_torch.cli import train as cli_train
+from vqvae_tpu_torch.data.packed import PackedDataset, write_packed
 from vqvae_tpu_torch.models.preprocess import preprocess_batch
 from vqvae_tpu_torch.models.vqvae import VQVAE
 from vqvae_tpu_torch.ops import _build, fused_dbwd, fused_dbwd_cuda, vq_cuda
 from vqvae_tpu_torch.ops.upfirdn2d import upfirdn2d
 from vqvae_tpu_torch.ops.vq import (code_mismatches, nearest_codes, nearest_codes_reference,
                                     nearest_codes_stats, nearest_codes_stats_reference)
+from vqvae_tpu_torch.train import loop
 from vqvae_tpu_torch.train.loop import Trainer
+from vqvae_tpu_torch.train.native_schedulers import build_native_lr_scheduler
 
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "example_confs" / "standard_vqvae.yaml"
 TRAIN_CONFIG = ROOT / "example_confs" / "ema_vqvae.yaml"
 GAN_CONFIG = ROOT / "example_confs" / "gumbel_vqgan.yaml"
+RECIPE_CONFIG = ROOT / "example_confs" / "gumbel_vqgan_1chip.yaml"
 SEED = 0
 KERNEL_SHAPES = [(8192, 1024, 256), (256, 1024, 256), (1000, 37, 8), (4097, 1024, 256),
                  (1000, 300, 37)]
@@ -119,6 +155,11 @@ DB_SHARE = 1e-5             # |db0 - float64 sum| <= DB_SHARE * sum of |dp0| per
 GAN_BATCH = 32
 GAN_STEPS = 4               # per precision
 GRAD_SHARE = 1e-4           # fused vs plain gradients, share of each tensor's largest entry
+CLI_TRAIN_IMAGES = 1280     # 5 optimizer steps of cumulative_bs 256
+CLI_VAL_IMAGES = 40
+CLI_ACCUM = 8               # leg (a): ema_vqvae.yaml's 256 as 8 micro-batches of 32
+CLI_GAN_BATCH = 32          # leg (c): CLI_GAN_ACCUM micro-batches of 16
+CLI_GAN_ACCUM = 2
 # published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): fp32 on the
 # CUDA cores, TF32 on the tensor cores (dense), and device memory
 FP32_FLOPS = 67e12
@@ -734,10 +775,12 @@ def _check_b4(dc, dys, what: str) -> float:
 
 
 def phase_dbwd_kernels(device):
-    """B3 and B4 against their plain versions at the D's block shapes and at
-    ragged ones, fp32 and bf16. Returns (B3 max error, B4 max error)."""
+    """B3 and B4 against their plain versions at the D's block shapes (at
+    the GAN slice's batch and at the CLI's GAN micro-batch, phase 10 (c)) and
+    at ragged ones, fp32 and bf16. Returns (B3 max error, B4 max error)."""
     gen = torch.Generator(device=device).manual_seed(SEED + 5)
-    shapes = [(DBWD_BATCH, c, h, h) for c, h in DBWD_BLOCKS] + DBWD_RAGGED
+    shapes = [(b, c, h, h) for b in (DBWD_BATCH, CLI_GAN_BATCH // CLI_GAN_ACCUM)
+              for c, h in DBWD_BLOCKS] + DBWD_RAGGED
     b3_err = b4_err = 0.0
     for b, c, h, w in shapes:
         for dtype in (torch.float32, torch.bfloat16):
@@ -797,6 +840,51 @@ def _grad_shares(a: dict, b: dict) -> dict:
     floor = 1e-3 * max(float(v.abs().max()) for v in b.values())
     return {k: float((a[k] - b[k]).abs().max()) / max(float(b[k].abs().max()), floor)
             for k in b}
+
+
+def _fused_ab(cfg, batch, device, what: str) -> None:
+    """The composed-program check: one non-R1 fp32 step of ``cfg`` from the
+    same weights, batch and noise, the D's backward fused against plain.
+    Every autoencoder and D gradient, and ``g_weight`` (the adaptive lambda
+    where the config asks for it), agree within ``GRAD_SHARE``."""
+    n_blocks = len(range(int(math.log2(cfg.image_size)), 2, -1))
+    runs = {}
+    for fused in (True, False):
+        trainer = Trainer(cfg, learning_rate=cfg.training.scaled_lr(), seed=SEED,
+                          steps_per_epoch=STEPS_PER_EPOCH, device=device, fused_dbwd=fused,
+                          fused_skip=fused)
+        state = trainer.init_state()
+        trainer.host_step = 1                      # not an R1 step
+        before = _dbwd_counts()
+        _, metrics = trainer.train_step(state, batch, epoch=cfg.loss.adversarial.start_epoch)
+        torch.cuda.synchronize()
+        runs[fused] = ({k: p.grad for k, p in state.model.named_parameters()},
+                       {k: p.grad for k, p in state.disc.named_parameters()},
+                       {k: float(v) for k, v in metrics.items()},
+                       _dbwd_counts()[0] - before[0], trainer.accum)
+        del trainer, state
+    (ae_f, d_f, m_f, n_f, accum), (ae_p, d_p, m_p, n_p, _) = runs[True], runs[False]
+    # D backward passes per micro-batch: the autoencoder's through the fake
+    # logits, the D's fake and real ones, and under use_adaptive the
+    # lambda's autograd.grad of the G loss
+    passes = 3 + int(cfg.loss.adversarial.use_adaptive)
+    check(n_f == passes * n_blocks * accum and n_p == 0,
+          f"{what}: the fused step launched B3 {n_f} times ({passes * n_blocks} per "
+          f"micro-batch), the plain one {n_p} times")
+    ae_share, d_share = _grad_shares(ae_f, ae_p), _grad_shares(d_f, d_p)
+    worst_ae = max(ae_share, key=ae_share.get)
+    worst_d = max(d_share, key=d_share.get)
+    g_share = abs(m_f["g_weight"] - m_p["g_weight"]) / max(abs(m_p["g_weight"]), 1e-30)
+    print(f"{what} fp32 non-R1 step at {accum} micro-batch(es) of "
+          f"{batch['image'].shape[0] // accum}, fused vs plain on the same weights and batch: "
+          f"loss {m_f['loss']:.7f} vs {m_p['loss']:.7f}, disc_loss {m_f['disc_loss']:.7f} vs "
+          f"{m_p['disc_loss']:.7f}, g_weight {m_f['g_weight']:.7g} vs {m_p['g_weight']:.7g} "
+          f"(share {g_share:.3e}); worst autoencoder gradient share {ae_share[worst_ae]:.3e} "
+          f"({worst_ae}), worst D gradient share {d_share[worst_d]:.3e} ({worst_d}); limit "
+          f"{GRAD_SHARE} of each tensor's largest entry")
+    check(ae_share[worst_ae] <= GRAD_SHARE and d_share[worst_d] <= GRAD_SHARE
+          and g_share <= GRAD_SHARE,
+          f"{what}: fused gradients and g_weight equal the plain ones inside the composed step")
 
 
 def phase_gan(cfg, device, card: str):
@@ -861,35 +949,7 @@ def phase_gan(cfg, device, card: str):
         print(f"gan slice bf16 {kind} step: launches by shape "
               + ", ".join(f"{k} {shape} x{n}" for (k, shape), n in sorted(counts.items())))
 
-    # the composed-program check: one non-R1 fp32 step from the same weights,
-    # batch and noise, fused against plain
-    grads = {}
-    for fused in (True, False):
-        trainer = Trainer(cfg, learning_rate=lr, seed=SEED, steps_per_epoch=STEPS_PER_EPOCH,
-                          device=device, fused_dbwd=fused, fused_skip=fused)
-        state = trainer.init_state()
-        trainer.host_step = 1                      # not an R1 step
-        before = _dbwd_counts()
-        _, metrics = trainer.train_step(state, batch, epoch=epoch)
-        torch.cuda.synchronize()
-        after = _dbwd_counts()
-        grads[fused] = ({k: p.grad for k, p in state.model.named_parameters()},
-                        {k: p.grad for k, p in state.disc.named_parameters()},
-                        {k: float(v) for k, v in metrics.items()}, after[0] - before[0])
-        del trainer, state
-    (ae_f, d_f, m_f, n_f), (ae_p, d_p, m_p, n_p) = grads[True], grads[False]
-    check(n_f == 3 * n_blocks and n_p == 0, "A/B: the fused step launched B3, the plain one not")
-    ae_share, d_share = _grad_shares(ae_f, ae_p), _grad_shares(d_f, d_p)
-    worst_ae = max(ae_share, key=ae_share.get)
-    worst_d = max(d_share, key=d_share.get)
-    print(f"gan A/B fp32 non-R1 step, fused vs plain on the same weights and batch: loss "
-          f"{m_f['loss']:.7f} vs {m_p['loss']:.7f}, disc_loss {m_f['disc_loss']:.7f} vs "
-          f"{m_p['disc_loss']:.7f}; worst autoencoder gradient share {ae_share[worst_ae]:.3e} "
-          f"({worst_ae}), worst D gradient share {d_share[worst_d]:.3e} ({worst_d}); limit "
-          f"{GRAD_SHARE} of each tensor's largest entry")
-    check(ae_share[worst_ae] <= GRAD_SHARE and d_share[worst_d] <= GRAD_SHARE,
-          "A/B: fused gradients equal the plain ones inside the composed step")
-    del grads, ae_f, d_f, ae_p, d_p
+    _fused_ab(cfg, batch, device, "gan A/B")
     torch.cuda.empty_cache()
 
     trainer, state = runs[torch.float32]
@@ -1026,6 +1086,250 @@ def _print_dbwd(card, name, shape, dtype, t, b_ms, b_by, dev, library, shape_lau
           f"{_reach(b_ms, dev)}); launches per GAN step: {per_step}")
 
 
+@contextmanager
+def _tf32(matmul: bool, cudnn: bool):
+    """TF32 for matmuls and convolutions set while it is entered."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = matmul, cudnn
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def _write_packs(root: Path, n_train: int, n_val: int, size: int, seed: int) -> None:
+    """Seeded uint8 images in ``train.pack`` and ``validation.pack``."""
+    rs = np.random.RandomState(seed)
+    root.mkdir(parents=True, exist_ok=True)
+    for name, n in (("train", n_train), ("validation", n_val)):
+        write_packed(str(root / f"{name}.pack"),
+                     (rs.randint(0, 256, (size, size, 3), dtype=np.uint8) for _ in range(n)), size)
+
+
+def _yaml(path: Path, base: Path, change) -> str:
+    raw = yaml.safe_load(base.read_text())
+    change(raw)
+    path.write_text(yaml.safe_dump(raw))
+    return str(path)
+
+
+def _records(run_dir: Path) -> list:
+    return [json.loads(x) for x in (run_dir / "metrics.jsonl").read_text().splitlines()]
+
+
+def _cli(params_file: str, data: Path, save: Path, run: str, *extra):
+    return cli_train.main(["--params_file", params_file, "--dataloader", "packed",
+                           "--dataset_path", str(data), "--save_path", str(save),
+                           "--run_name", run, "--seed", str(SEED), "--workers", "4", *extra])
+
+
+class _StepSpy:
+    """While it is entered, records around each ``Trainer.train_step`` two
+    CUDA events on the stream, with no synchronisation between steps (the
+    loop's overlap of loader and host copies with the card's work stays),
+    and the peak memory of training and of each ``run_validation``. Once
+    left, ``steps`` holds each step's (ms on the stream, images, metrics)."""
+
+    def __init__(self):
+        self.steps, self.val_peaks, self.train_peak = [], [], 0
+
+    def __enter__(self):
+        real_step, real_val = loop.Trainer.train_step, loop.run_validation
+        self._events = []
+
+        def train_step(trainer, state, batch, epoch):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = real_step(trainer, state, batch, epoch)
+            end.record()
+            self._events.append((start, end, batch["image"].shape[0], out[1]))
+            return out
+
+        def run_validation(*args, **kwargs):
+            torch.cuda.synchronize()
+            self.train_peak = max(self.train_peak, torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            out = real_val(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.val_peaks.append(torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            return out
+
+        self._patches = ExitStack()
+        self._patches.enter_context(mock.patch.object(loop.Trainer, "train_step", train_step))
+        self._patches.enter_context(mock.patch.object(loop, "run_validation", run_validation))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        return self
+
+    def __exit__(self, *exc):
+        self._patches.close()
+        torch.cuda.synchronize()
+        self.train_peak = max(self.train_peak, torch.cuda.max_memory_allocated())
+        self.steps = [(start.elapsed_time(end), n, {k: float(v) for k, v in m.items()})
+                      for start, end, n, m in self._events]
+
+
+def _finite_losses(run_dir: Path, what: str) -> None:
+    records = _records(run_dir)
+    check(bool(records) and all(math.isfinite(v) for r in records for v in r.values()),
+          f"{what}: every logged value finite")
+
+
+def _leg_ema(tmp: Path, card: str) -> tuple:
+    """Leg (a): ema_vqvae.yaml at grad_accum_steps 8 with reinit every epoch,
+    one epoch, then a resume from last/ for a second. -> (B1, B2 launches)."""
+    params = _yaml(tmp / "ema_accum.yaml", TRAIN_CONFIG, lambda raw: (
+        raw["training"].update(grad_accum_steps=CLI_ACCUM),
+        raw["quantizer"].update(reinit_every_n_epochs=1)))
+    seen = {}
+    real_reinit = loop.Trainer.maybe_reinit_codes
+
+    def reinit(trainer, state, epoch):
+        q = state.model.quantizer
+        before = (state.usage_count.clone(), q.codebook.weight.clone())
+        out = real_reinit(trainer, state, epoch)
+        seen[epoch] = before + tuple(t.clone() for t in (q.codebook.weight, q.ema_weight,
+                                                          q.ema_count))
+        return out
+
+    save = tmp / "ckpt"
+    _reset_counts()
+    with mock.patch.object(loop.Trainer, "maybe_reinit_codes", reinit), _StepSpy() as spy:
+        state, _ = _cli(params, tmp / "data", save, "ema", "--max_epochs", "1")
+        torch.cuda.synchronize()
+        first_steps = state.step
+        b2_first = nearest_codes_stats.launches
+        state, _ = _cli(params, tmp / "data", save, "ema", "--max_epochs", "2",
+                        "--loading_path", str(save / "ema" / "last"))
+    torch.cuda.synchronize()
+    b1, b2 = nearest_codes.launches, nearest_codes_stats.launches
+    micro = spy.steps[0][1] // CLI_ACCUM
+    print(f"cli (a) ema_vqvae.yaml, grad_accum_steps {CLI_ACCUM}, bf16: {first_steps} + "
+          f"{state.step - first_steps} optimizer steps of {CLI_ACCUM} x {micro}; "
+          f"nearest_codes_stats launched {b2_first} + {b2 - b2_first} times, nearest_codes "
+          f"{b1} times (validation, panels); peak memory training "
+          f"{spy.train_peak / 2**30:.2f} GiB, validation {spy.val_peaks[0] / 2**30:.2f} GiB "
+          f"[{card}]")
+    check(first_steps == CLI_TRAIN_IMAGES // spy.steps[0][1] and state.step == 2 * first_steps,
+          "cli (a): one epoch of steps, then a resumed one")
+    check(b2_first == CLI_ACCUM * first_steps and b2 == CLI_ACCUM * state.step,
+          f"cli (a): nearest_codes_stats launched {CLI_ACCUM} times per optimizer step")
+    check(b1 > 0, "cli (a): validation launched nearest_codes")
+    run = save / "ema"
+    check(all((run / d / "state.pt").is_file() for d in ("epoch_0000", "epoch_0001", "last")),
+          "cli (a): epoch_0000/, epoch_0001/ and last/ hold a checkpoint")
+    _finite_losses(run, "cli (a)")
+    steps = [r["step"] for r in _records(run) if "train/loss" in r]
+    check(steps == [first_steps, 2 * first_steps],
+          f"cli (a): the resumed run's step continues the first run's ({steps})")
+    check(sorted(seen) == [0, 1], "cli (a): maybe_reinit_codes ran at the end of epochs 0, 1")
+    usage, cb0, cb1, ema_w, ema_c = seen[1]
+    dead = usage == 0
+    n_dead = int(dead.sum())
+    check(torch.equal(cb1[~dead], cb0[~dead]), "cli (a): the epoch-1 reinit kept the used rows")
+    if n_dead:
+        nearest = torch.cdist(cb1[dead], cb0[~dead],
+                              compute_mode="donot_use_mm_for_euclid_dist").min(1).values
+        check(bool((nearest == 0).all()), "cli (a): each dead row became a used row's copy")
+        ratio = ema_w[dead] / ema_c[dead, None]
+        rel = float(((cb1[dead] - ratio).abs() / ratio.abs().clamp(min=1e-30)).max())
+        check(rel <= 1e-6, f"cli (a): replaced rows keep codebook == ema_weight / ema_count "
+                           f"(rtol 1e-6; worst {rel:.3g})")
+    print(f"cli (a): the epoch-1 reinit replaced {n_dead} dead rows of {usage.numel()} "
+          f"(epoch 0 left alone: {torch.equal(seen[0][1], seen[0][2])})")
+    check(torch.equal(seen[0][1], seen[0][2]), "cli (a): no reinit at epoch 0")
+    return b1, b2
+
+
+def _leg_recipe(tmp: Path, card: str) -> None:
+    """Leg (b): the published one-chip recipe, gumbel_vqgan_1chip.yaml
+    unchanged (cumulative_bs 256 = 8 x 32, pre-GAN), one epoch."""
+    t = load_config(str(RECIPE_CONFIG)).training
+    with _StepSpy() as spy:
+        _cli(str(RECIPE_CONFIG), tmp / "data", tmp / "ckpt", "recipe", "--max_epochs", "1")
+    run = tmp / "ckpt" / "recipe"
+    _finite_losses(run, "cli (b)")
+    logged = [r["train/images_per_sec"] for r in _records(run) if "train/images_per_sec" in r]
+    times = [t for t, _, _ in spy.steps]
+    batch = spy.steps[0][1]
+    steady = statistics.mean(times[1:])
+    print(f"time [{card}]: cli (b) gumbel_vqgan_1chip.yaml bf16, {len(times)} optimizer steps of "
+          f"{t.grad_accum_steps} x {batch // t.grad_accum_steps} (pre-GAN), each step's time on "
+          f"the stream by CUDA events, no synchronisation between steps: ms per step "
+          + " ".join(f"{t:.1f}" for t in times)
+          + f"; steps 2-{len(times)}: mean {steady:.1f} ms/step, {batch * 1000 / steady:.1f} "
+          f"images/s; the loop's logged train/images_per_sec over the whole epoch (first step, "
+          f"reconstruction panel and loader included) {logged[0]:.1f}; peak memory training "
+          f"{spy.train_peak / 2**30:.2f} GiB, validation {spy.val_peaks[0] / 2**30:.2f} GiB in "
+          f"chunks of {t.cumulative_bs // t.grad_accum_steps}")
+    check(len(times) == CLI_TRAIN_IMAGES // t.cumulative_bs and batch == t.cumulative_bs,
+          f"cli (b): one epoch of optimizer steps at cumulative_bs {t.cumulative_bs}")
+
+
+def _leg_gan(tmp: Path, card: str, device) -> tuple:
+    """Leg (c): the GAN with adaptive lambda, cumulative_bs 32 at
+    grad_accum_steps 2, the fused D backward on, two steps (R1, then not).
+    -> (B3, B4 launches)."""
+    params = _yaml(tmp / "gan_adaptive.yaml", RECIPE_CONFIG, lambda raw: (
+        raw["loss"]["adversarial_params"].update(start_epoch=0, use_adaptive=True),
+        raw["training"].update(cumulative_bs=CLI_GAN_BATCH, grad_accum_steps=CLI_GAN_ACCUM)))
+    _reset_counts()
+    env = {"VQVAE_TPU_FUSED_DBWD": "1", "VQVAE_TPU_FUSED_SKIP": "1"}
+    with mock.patch.dict(os.environ, env), _StepSpy() as spy:
+        _cli(params, tmp / "gan_data", tmp / "ckpt", "gan", "--max_epochs", "1")
+    torch.cuda.synchronize()
+    b3, b4 = _dbwd_counts()
+    _finite_losses(tmp / "ckpt" / "gan", "cli (c)")
+    g = [m["g_weight"] for _, _, m in spy.steps]
+    r1 = [m["r1_penalty"] for _, _, m in spy.steps]
+    logged = [r["train/g_weight"] for r in _records(tmp / "ckpt" / "gan") if "train/g_weight" in r]
+    print(f"time [{card}]: cli (c) adaptive-lambda GAN, bf16, {CLI_GAN_ACCUM} x "
+          f"{CLI_GAN_BATCH // CLI_GAN_ACCUM} per step, fused D backward: ms per step " + " ".join(f"{t:.1f}" for t, _, _ in spy.steps)
+          + f"; g_weight {g}, logged {logged}; r1_penalty {r1}; blur_t_gate launched {b3} times, "
+          f"skip_fanout_bwd {b4} times; peak memory training {spy.train_peak / 2**30:.2f} GiB")
+    check(len(spy.steps) == 2, "cli (c): two optimizer steps")
+    check(all(math.isfinite(v) and v > 0 for v in g + logged), "cli (c): g_weight finite and > 0")
+    check(r1[0] > 0 and r1[1] == 0, "cli (c): r1_penalty > 0 on step 0 only")
+    check(b3 > 0 and b4 > 0, "cli (c): the GAN launched blur_t_gate and skip_fanout_bwd")
+    # the leg's config, shapes and data in fp32, fused against plain; these
+    # launches come after the leg's counts were read
+    reader = PackedDataset(str(tmp / "gan_data" / "train.pack"))
+    images = reader.read_batch(np.arange(CLI_GAN_BATCH))
+    reader.close()
+    with _tf32(False, False):
+        _fused_ab(load_config(params), {"image": images}, device, "cli (c) A/B")
+    return b3, b4
+
+
+def phase_cli(card: str, device) -> dict:
+    """The port's train CLI in process on the card, in bf16 (its default),
+    with torch's default TF32 settings (the CLI's own), on seeded packed data:
+    legs (a) EMA with accumulation, reinit and resume; (b) the published
+    one-chip recipe; (c) the adaptive-lambda GAN with the fused D backward.
+    -> this phase's launches per kernel."""
+    size = load_config(str(RECIPE_CONFIG)).image_size
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as name, _tf32(False, True):
+        tmp = Path(name)
+        _write_packs(tmp / "data", CLI_TRAIN_IMAGES, CLI_VAL_IMAGES, size, SEED + 8)
+        _write_packs(tmp / "gan_data", 2 * CLI_GAN_BATCH, CLI_VAL_IMAGES, size, SEED + 9)
+        reader = PackedDataset(str(tmp / "data" / "train.pack"))
+        lr = build_native_lr_scheduler(1e-4, 3, None, 250)
+        print(f"cli: packed reader native {reader.is_native}, LR twin native {lr.is_native}")
+        check(reader.is_native and lr.is_native,
+              "cli: g++ built the packed reader and the LR twin (no Python twin on the card)")
+        reader.close()
+        lr.destroy()
+        b1, b2 = _leg_ema(tmp, card)
+        torch.cuda.empty_cache()
+        _leg_recipe(tmp, card)
+        torch.cuda.empty_cache()
+        b3, b4 = _leg_gan(tmp, card, device)
+        torch.cuda.empty_cache()
+    return {"nearest_codes": b1, "nearest_codes_stats": b2, "blur_t_gate": b3,
+            "skip_fanout_bwd": b4}
+
+
 def _record(name, source, replaces, launches, max_abs_err, shape, t) -> dict:
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": max_abs_err, "ms": t["kernel"],
@@ -1060,31 +1364,41 @@ def main() -> None:
     torch.cuda.empty_cache()
     b256 = (DBWD_BATCH, DBWD_BLOCKS[0][0], DBWD_BLOCKS[0][1], DBWD_BLOCKS[0][1])
     dbwd = phase_dbwd_times(device, card, shape_launches)
+    t_cli = time.perf_counter()
+    cli = phase_cli(card, device)
+    print(f"time [{card}]: cli: the phase took {time.perf_counter() - t_cli:.1f} s; "
+          f"launches {cli}")
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [
-        # launches: the tokenizer path's plus the training path's; max_abs_err:
+        # launches: the tokenizer path's, the training path's and the train
+        # CLI's (cli_launches: the last alone, counted from 0 for each of its
+        # legs); max_abs_err:
         # the largest float64 score gap between the kernel's and the plain
         # version's pick over every compared row (0.0 where all agree)
         # bound_ms: 3 TF32 passes x 2MND on the tensor cores (bound_ops; the
         # FFMA bound is in the time lines); device_ms: the kernels' device
         # time (profiler), ms: CUDA events around the wrapper
         _record("nearest_codes", "vqvae_tpu_torch/csrc/nearest_codes.cu",
-                "vqvae_tpu/ops/vq_pallas.py:141", b1_tokenizer + b1_train,
-                max(kernel_gap, slice_gap), (8192, 1024, 256), b1) | _scan_bound(b1),
+                "vqvae_tpu/ops/vq_pallas.py:141", b1_tokenizer + b1_train + cli["nearest_codes"],
+                max(kernel_gap, slice_gap), (8192, 1024, 256), b1) | _scan_bound(b1)
+        | {"cli_launches": cli["nearest_codes"]},
         # max_abs_err: the largest |dw - dw_plain| over the compared shapes
         _record("nearest_codes_stats", "vqvae_tpu_torch/csrc/nearest_codes_stats.cu",
-                "vqvae_tpu/ops/vq_pallas.py:89", b2_train, stats_err, STATS_SHAPES[0], b2)
-        | _scan_bound(b2),
-        # launches: the GAN path's 8 train steps; max_abs_err: the largest
+                "vqvae_tpu/ops/vq_pallas.py:89", b2_train + cli["nearest_codes_stats"], stats_err,
+                STATS_SHAPES[0], b2) | _scan_bound(b2)
+        | {"cli_launches": cli["nearest_codes_stats"]},
+        # launches: the GAN path's 8 train steps and the CLI's leg (c); max_abs_err: the largest
         # |kernel - plain| over every compared shape, fp32 and bf16 (bf16 is
         # one bf16 ulp); times at the first block's shape in bf16, the
         # training compute dtype
         _record("blur_t_gate", "vqvae_tpu_torch/csrc/fused_dbwd.cu",
-                "vqvae_tpu/ops/fused_dbwd.py:220", b3_gan, b3_err, b256,
-                dbwd[("B3", torch.bfloat16, b256)]) | {"dtype": "bfloat16"},
+                "vqvae_tpu/ops/fused_dbwd.py:220", b3_gan + cli["blur_t_gate"], b3_err, b256,
+                dbwd[("B3", torch.bfloat16, b256)])
+        | {"dtype": "bfloat16", "cli_launches": cli["blur_t_gate"]},
         _record("skip_fanout_bwd", "vqvae_tpu_torch/csrc/fused_dbwd.cu",
-                "vqvae_tpu/ops/fused_dbwd.py:386", b4_gan, b4_err, b256,
-                dbwd[("B4", torch.bfloat16, b256)]) | {"dtype": "bfloat16"},
+                "vqvae_tpu/ops/fused_dbwd.py:386", b4_gan + cli["skip_fanout_bwd"], b4_err, b256,
+                dbwd[("B4", torch.bfloat16, b256)])
+        | {"dtype": "bfloat16", "cli_launches": cli["skip_fanout_bwd"]},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,13 @@
 """The PyTorch port stands apart from JAX: importing it and every submodule
-loads neither the JAX package nor jax / flax / optax, no file of it imports
-them, its own config parser equals the JAX package's, its entry points ask
-for the card unless told otherwise, ``chip_smoke.py`` refuses to run without
-a GPU, and the profiler sorts kernel names into the kinds it reports.
+loads neither the JAX package nor jax / flax / optax / orbax, no file of it
+imports them, its own config parser equals the JAX package's, its entry
+points (``run_training`` and the train CLI among them) ask for the card
+unless told otherwise, its copies of the host sources keep the C interface
+their loaders bind, ``chip_smoke.py`` refuses to run without a GPU, and the
+profiler sorts kernel names into the kinds it reports.
 """
 
+import ctypes
 import dataclasses
 import re
 import subprocess
@@ -28,7 +31,9 @@ for name in names:
     importlib.import_module(name)
 cfg = vqvae_tpu_torch.load_config("example_confs/standard_vqvae.yaml")
 assert vqvae_tpu_torch.VQVAE.__name__ == "VQVAE" and cfg.latent_size == 16
-loaded = sorted(m for m in ("vqvae_tpu", "jax", "flax", "optax") if m in sys.modules)
+assert {"vqvae_tpu_torch.cli.train", "vqvae_tpu_torch.cli.create_packed_dataset",
+        "vqvae_tpu_torch.train.loop", "vqvae_tpu_torch.data.dataset"} <= set(names)
+loaded = sorted(m for m in ("vqvae_tpu", "jax", "flax", "optax", "orbax") if m in sys.modules)
 print(len(names), loaded)
 """
 
@@ -38,7 +43,7 @@ def test_import_loads_no_jax():
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n_modules, loaded = out.stdout.split(maxsplit=1)
-    assert int(n_modules) >= 18
+    assert int(n_modules) >= 26
     assert loaded.strip() == "[]"
 
 
@@ -114,6 +119,77 @@ def test_entry_points_ask_for_the_card_by_default(monkeypatch, tmp_path):
     with pytest.raises(Asked):
         trainer.init_state()
     assert [torch.device(d) for d in asked] == [torch.device("cuda")]
+
+
+def test_training_entry_points_ask_for_the_card_by_default(monkeypatch, tmp_path):
+    """``run_training`` builds its Trainer on CUDA unless told otherwise, and
+    the train CLI's ``--device`` defaults to ``cuda``; the packer CLI touches
+    no device."""
+    from vqvae_tpu_torch import load_config
+    from vqvae_tpu_torch.cli import create_packed_dataset, train as cli_train
+    from vqvae_tpu_torch.train import loop
+    asked = []
+
+    class Asked(Exception):
+        pass
+
+    def record_trainer(**kwargs):
+        asked.append(kwargs.get("device", "<missing>"))
+        raise Asked
+
+    class Loader:
+        batch_size = 8
+
+        def __len__(self):
+            return 1
+
+    monkeypatch.setattr(loop, "Trainer", record_trainer)
+    cfg = load_config(str(ROOT / "example_confs" / "ema_vqvae.yaml"))
+    with pytest.raises(Asked):
+        loop.run_training(cfg, Loader(), None, seed=0, learning_rate=1e-4,
+                          save_dir=str(tmp_path), run_name="r")
+    assert [torch.device(d) for d in asked] == [torch.device("cuda")]
+    args = cli_train.parse_args(["--params_file", "x", "--dataset_path", "x", "--save_path",
+                                 "x", "--run_name", "x", "--seed", "0"])
+    assert args.device == "cuda" and args.precision == "bf16"
+    assert "device" not in vars(create_packed_dataset.get_args(["--output_folder", "x"]))
+
+
+_C_TYPES = {"double": ctypes.c_double, "void*": ctypes.c_void_p, "const char*": ctypes.c_char_p,
+            "int": ctypes.c_int, "int64_t": ctypes.c_int64, "void": None,
+            "uint64_t*": ctypes.POINTER(ctypes.c_uint64),
+            "uint32_t*": ctypes.POINTER(ctypes.c_uint32),
+            "const int64_t*": ctypes.POINTER(ctypes.c_int64),
+            "uint8_t*": ctypes.POINTER(ctypes.c_uint8),
+            "const double*": ctypes.POINTER(ctypes.c_double),
+            "double*": ctypes.POINTER(ctypes.c_double)}
+
+
+def _c_interface(path: Path) -> dict:
+    """name -> (restype, argtypes) of every function defined in the
+    ``extern "C"`` block of a host source."""
+    text = path.read_text()
+    block = text[text.index('extern "C" {'):]
+    out = {}
+    for ret, name, params in re.findall(r"^(void\*|void|double|int)\s+(\w+)\(([^)]*)\)\s*\{",
+                                        block, re.M):
+        types = [" ".join(p.split()[:-1]).replace(" *", "*") for p in params.split(",")]
+        out[name] = (_C_TYPES[ret], [_C_TYPES[t] for t in types])
+    return out
+
+
+@pytest.mark.parametrize("name,module", [("schedulers", "vqvae_tpu_torch.train.native_schedulers"),
+                                         ("packio", "vqvae_tpu_torch.data.packed")])
+def test_host_sources_keep_the_c_interface_their_loaders_bind(name, module):
+    """Every function a loader binds is defined in the port's copy of the
+    source with those types, and the copy defines the JAX package's
+    ``csrc/`` functions with the same types."""
+    import importlib
+    signatures = importlib.import_module(module).SIGNATURES
+    ours = _c_interface(PKG / "csrc" / f"{name}.cpp")
+    assert {k: ours[k] for k in signatures} == {
+        k: (r, list(a)) for k, (r, a) in signatures.items()}
+    assert ours == _c_interface(ROOT / "csrc" / f"{name}.cpp")
 
 
 def test_chip_smoke_refuses_without_gpu():

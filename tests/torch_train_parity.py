@@ -120,7 +120,8 @@ def check_gradients(pair):
 
 def check_first_step(pair):
     got, want = pair["traj_port"][0], pair["traj_jax"][0]
-    assert set(got) == {"loss", "l1_loss", "l2_loss", "quant_loss", "lr"}
+    assert set(got) == set(want) == {"loss", "l1_loss", "l2_loss", "quant_loss", "perc_loss",
+                                     "gen_loss", "disc_loss", "r1_penalty", "g_weight", "lr"}
     for k, v in got.items():
         np.testing.assert_allclose(v, want[k], rtol=1e-4, err_msg=k)
     got_usage, want_usage = pair["usage"]

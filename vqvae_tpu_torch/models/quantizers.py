@@ -1,5 +1,5 @@
-"""Standard, EMA and gumbel vector quantizers and codebook helpers
-(counterpart of ``vqvae_tpu/models/quantizers.py:44-93, 166-381``).
+"""Standard, EMA and gumbel vector quantizers and codebook helpers, dead-code
+reinit among them (counterpart of ``vqvae_tpu/models/quantizers.py:44-381``).
 
 Quantizers take NCHW latents ``z: (B, D, H, W)`` and flatten them in
 (b, h, w) row-major order, as the JAX package flattens its NHWC latents, so
@@ -62,6 +62,62 @@ def get_codebook_usage(index_count: torch.Tensor):
     perplexity = torch.exp(-(probs * torch.log(probs + 1e-10)).sum())
     used_pct = torch.count_nonzero(probs) * 100.0 / index_count.shape[0]
     return probs, perplexity, used_pct
+
+
+def pick_reinit(usage_probs: torch.Tensor, embedding_dim: int, generator: torch.Generator,
+                noise_scale: float = 0.0):
+    """The pick half of dead-code reinit: one replacement index per code,
+    drawn with replacement from the usage distribution (so only used codes),
+    and, with ``noise_scale``, standard normal noise for each row; both drawn
+    on the CPU from ``generator`` and moved to ``usage_probs``' device.
+    -> (replacements (N,) int64, noise (N, D) fp32 or None)."""
+    n = usage_probs.shape[0]
+    weights = usage_probs.detach().double().cpu()
+    if not bool((weights > 0).any()):
+        weights = torch.ones(n, dtype=torch.float64)   # nothing used: uniform
+    replacements = torch.multinomial(weights, n, replacement=True, generator=generator)
+    noise = None
+    if noise_scale:
+        noise = torch.randn(n, embedding_dim, generator=generator).to(usage_probs.device)
+    return replacements.to(usage_probs.device), noise
+
+
+def _reinit_rows(codebook, usage_probs, replacements, noise, noise_scale):
+    unused = usage_probs == 0.0
+    rows = codebook[replacements]
+    if noise_scale:
+        std = codebook.std(0, correction=0, keepdim=True)
+        rows = rows + noise_scale * std * noise
+    return unused, rows
+
+
+def reinit_unused_codes(codebook: torch.Tensor, usage_probs: torch.Tensor,
+                        replacements: torch.Tensor, noise: Optional[torch.Tensor] = None,
+                        noise_scale: float = 0.0) -> torch.Tensor:
+    """The apply half of dead-code reinit (counterpart of
+    ``vqvae_tpu/models/quantizers.py:96-125``): each unused row (usage 0)
+    becomes its replacement's row, perturbed by ``noise_scale`` times the
+    per-dimension codebook std times ``noise`` where ``noise_scale > 0``.
+    Returns the new codebook."""
+    unused, rows = _reinit_rows(codebook, usage_probs, replacements, noise, noise_scale)
+    return torch.where(unused[:, None], rows, codebook)
+
+
+def reinit_unused_codes_ema(codebook: torch.Tensor, ema_weight: torch.Tensor,
+                            ema_count: torch.Tensor, usage_probs: torch.Tensor,
+                            replacements: torch.Tensor, noise: Optional[torch.Tensor] = None,
+                            noise_scale: float = 0.0):
+    """The apply half for the EMA quantizer (counterpart of
+    ``vqvae_tpu/models/quantizers.py:128-164``): the unused rows' EMA
+    accumulators are resampled too, so that the next step's
+    ``ema_weight / ema_count`` keeps the new row (the reference rewrites the
+    codebook alone, which the next step undoes; the JAX package's fix).
+    Returns (codebook, ema_weight, ema_count)."""
+    unused, rows = _reinit_rows(codebook, usage_probs, replacements, noise, noise_scale)
+    new_count = torch.where(unused, ema_count[replacements], ema_count)
+    new_cb = torch.where(unused[:, None], rows, codebook)
+    new_weight = torch.where(unused[:, None], rows * new_count[:, None], ema_weight)
+    return new_cb, new_weight, new_count
 
 
 def count_code_usage(codes: torch.Tensor, num_embeddings: int,

@@ -19,8 +19,18 @@
   on an R1 step the real images go through the plain D (``fused=False``),
   and the penalty is ``r1_weight`` times the batch mean of
   ``|d sum(D(x)) / dx|^2`` taken with ``create_graph``, so its D gradient is
-  a second-order one. Both optimizers step after every backward pass, so D
-  sees pre-update reconstructions.
+  a second-order one. Both optimizers step once, after every backward pass
+  of the step, so D sees pre-update reconstructions. With ``use_adaptive`` the generator
+  loss's weight is the adaptive lambda (``_adaptive_g_weight``).
+- Accumulation (``grad_accum_steps > 1``): the batch is taken in equal
+  micro-batches, each at the weights before the step, its losses scaled by
+  ``1 / accum`` into ``.grad`` (a mean of means), its graph freed before the
+  next one is built; then one AdamW step per model. R1 is taken on every
+  micro-batch of an R1 step. The EMA buffers advance once per micro-batch,
+  as the JAX scan's carry does (a documented divergence from the
+  reference, which never accumulates). Metrics are micro-batch means, usage
+  their sum; every step reports the JAX step's nine metrics, 0 where a
+  term is absent.
 - Eval: no augmentations, no optimizer, no EMA update; masked per-sample
   means, so zero-padded rows of a partial final batch count for nothing;
   with the GAN active, the per-sample G and D losses of the plain D.
@@ -73,67 +83,106 @@ def _perc(losses: LossStack, images, recon, reduce: bool) -> torch.Tensor:
     return losses.lpips(images, recon, reduce=reduce)
 
 
-def train_step(state: TrainState, raw_images: torch.Tensor, lr: float, augment: bool,
-               image_size: int, losses: Optional[LossStack] = None, gan: bool = False,
-               r1: bool = False, d_lr: Optional[float] = None, temp: Optional[float] = None,
-               kl_cost: Optional[float] = None) -> dict:
-    """One optimizer step (two with the GAN) on a [0,1] NHWC batch; updates
-    ``state`` in place and returns its metrics as 0-d tensors (no host sync)
-    and the LR it used. ``temp`` / ``kl_cost``: the gumbel schedules' values."""
-    set_lr(state.optimizer, lr)
+def _adaptive_g_weight(model, perc: torch.Tensor, g_loss: torch.Tensor,
+                       g_weight: float) -> torch.Tensor:
+    """Adaptive lambda (counterpart of ``vqvae_tpu/train/steps.py:296-322``):
+    ``|d perc / dW| / (|d g_loss / dW| + 1e-8)``, clipped to [0, 1e4], times
+    ``g_weight``, with W the decoder's last conv kernel and ``perc`` the
+    unweighted LPIPS term (the reference's quirk). Both gradients are taken
+    on the graph already built, and no gradient flows through the result."""
+    w = model.decoder.conv_out.weight
+    (gp,) = torch.autograd.grad(perc, w, retain_graph=True)
+    (gg,) = torch.autograd.grad(g_loss, w, retain_graph=True)
+    lam = torch.linalg.vector_norm(gp.float()) / (torch.linalg.vector_norm(gg.float()) + 1e-8)
+    return (lam.clamp(0.0, 1e4) * g_weight).detach()
+
+
+def _micro_step(state: TrainState, raw_images: torch.Tensor, augment: bool, image_size: int,
+                losses: Optional[LossStack], gan: bool, r1: bool, temp, kl_cost,
+                scale: float):
+    """Forward and backward of one micro-batch at the weights before the
+    step: each loss, times ``scale``, adds its gradient into ``.grad``. The
+    graph is freed before returning. -> (detached metrics, codes)."""
     images = preprocess_batch(raw_images, state.generator, training=augment,
                               image_size=image_size)
+    zero = torch.zeros((), device=images.device)
+    d_real = r1_penalty = zero
     if gan:
         adv = losses.adv
-        set_lr(state.disc_optimizer, d_lr)
-        state.disc_optimizer.zero_grad(set_to_none=True)
         d_params = list(state.disc.parameters())
         real = _nchw(images).detach().requires_grad_(r1)
         logits_real = state.disc(real, fused=not r1)
         d_real = discriminator_loss_half(logits_real, True, adv.loss_type).mean()
-        r1_penalty = torch.zeros((), device=images.device)
         if r1:
             (grad,) = torch.autograd.grad(logits_real.sum(), real, create_graph=True)
             per_sample = grad.square().reshape(grad.shape[0], -1).sum(1)
             r1_penalty = adv.r1_reg_weight * per_sample.mean()
-        (d_real + r1_penalty).backward(inputs=d_params)
+        ((d_real + r1_penalty) * scale).backward(inputs=d_params)
         del logits_real, real
     recon, q_loss, codes = state.model(images, train=True, temp=temp, kl_cost=kl_cost,
                                        generator=state.noise_generator)
     l1 = l1_loss(recon, images)
     l2 = l2_loss(recon, images)
-    state.optimizer.zero_grad(set_to_none=True)
+    perc = g_loss = d_loss = g_weight = zero
     if losses is None:
         loss = q_loss + l2
-        loss.backward()
-        extra = {}
+        (loss * scale).backward()
     else:
         perc = _perc(losses, images, recon, reduce=True)
         nll = l1 * losses.l1_weight + l2 * losses.l2_weight + perc * losses.perc_weight
-        zero = torch.zeros((), device=images.device)
-        g_loss = d_loss = g_weight = zero
         if gan:
             logits_fake = state.disc(_nchw(recon))   # shared by the G and D losses
             g_loss = generator_loss(logits_fake, adv.loss_type)
-            g_weight = torch.tensor(adv.g_weight, device=images.device)
-            loss = nll + g_loss * adv.g_weight + q_loss
+            if adv.use_adaptive:
+                g_weight = _adaptive_g_weight(state.model, perc, g_loss, adv.g_weight)
+                loss = nll + g_loss * g_weight + q_loss
+            else:
+                g_weight = torch.tensor(adv.g_weight, device=images.device)
+                loss = nll + g_loss * adv.g_weight + q_loss
             d_fake = discriminator_loss_half(logits_fake, False, adv.loss_type).mean()
             d_loss = d_real + d_fake
-            d_fake.backward(inputs=d_params, retain_graph=True)
-            loss.backward(inputs=[p for p in state.model.parameters() if p.requires_grad])
-            state.disc_optimizer.step()
-            state.disc_step += 1
+            (d_fake * scale).backward(inputs=d_params, retain_graph=True)
+            (loss * scale).backward(
+                inputs=[p for p in state.model.parameters() if p.requires_grad])
         else:
             loss = nll + q_loss
-            loss.backward()
-        extra = {"perc_loss": perc.detach(), "gen_loss": g_loss.detach(),
-                 "disc_loss": d_loss.detach(),
-                 "r1_penalty": (r1_penalty if gan else zero).detach(), "g_weight": g_weight}
+            (loss * scale).backward()
+    metrics = {"loss": loss, "l1_loss": l1, "l2_loss": l2, "quant_loss": q_loss,
+               "perc_loss": perc, "gen_loss": g_loss, "disc_loss": d_loss,
+               "r1_penalty": r1_penalty, "g_weight": g_weight}
+    return {k: v.detach() for k, v in metrics.items()}, codes
+
+
+def train_step(state: TrainState, raw_images: torch.Tensor, lr: float, augment: bool,
+               image_size: int, losses: Optional[LossStack] = None, gan: bool = False,
+               r1: bool = False, d_lr: Optional[float] = None, temp: Optional[float] = None,
+               kl_cost: Optional[float] = None, accum: int = 1) -> dict:
+    """One optimizer step (two with the GAN) on a [0,1] NHWC batch, taken in
+    ``accum`` equal micro-batches (counterpart of ``vqvae_tpu/train/steps.py:382-422``);
+    updates ``state`` in place and returns its metrics as 0-d tensors (no
+    host sync), each the mean over the micro-batches, and the LR it used.
+    ``temp`` / ``kl_cost``: the gumbel schedules' values."""
+    b = raw_images.shape[0]
+    if b % accum:
+        raise ValueError(f"batch {b} is not divisible by grad_accum_steps={accum}")
+    set_lr(state.optimizer, lr)
+    state.optimizer.zero_grad(set_to_none=True)
+    if gan:
+        set_lr(state.disc_optimizer, d_lr)
+        state.disc_optimizer.zero_grad(set_to_none=True)
+    sums = None
+    for micro in raw_images.split(b // accum):
+        metrics, codes = _micro_step(state, micro, augment, image_size, losses, gan, r1,
+                                     temp, kl_cost, 1.0 / accum)
+        sums = metrics if sums is None else {k: sums[k] + v for k, v in metrics.items()}
+        state.usage_count += count_code_usage(codes, state.usage_count.shape[0])
     state.optimizer.step()
-    state.usage_count += count_code_usage(codes, state.usage_count.shape[0])
+    if gan:
+        state.disc_optimizer.step()
+        state.disc_step += 1
     state.step += 1
-    metrics = {"loss": loss.detach(), "l1_loss": l1.detach(), "l2_loss": l2.detach(),
-               "quant_loss": q_loss.detach(), **extra, "lr": lr}
+    metrics = sums if accum == 1 else {k: v * (1.0 / accum) for k, v in sums.items()}
+    metrics["lr"] = lr
     if temp is not None:
         metrics.update(gumbel_temperature=temp, gumbel_kl=kl_cost)
     return metrics
@@ -158,13 +207,12 @@ def eval_step(state: TrainState, raw_images: torch.Tensor, mask: torch.Tensor,
     l1_i = _per_sample_mean((images - recon).abs())
     l2_i = _per_sample_mean((images - recon) ** 2)
     n_valid = maskf.sum()
-    extra = {}
+    p_i = g_i = d_i = torch.zeros_like(l1_i)
     if losses is None:
         loss_i = q_loss + l2_i
     else:
         p_i = _perc(losses, images, recon, reduce=False)
         nll_i = l1_i * losses.l1_weight + l2_i * losses.l2_weight + p_i * losses.perc_weight
-        g_i = d_i = torch.zeros_like(l1_i)
         if gan:
             adv = losses.adv
             logits_fake = state.disc(_nchw(recon), fused=False)
@@ -174,14 +222,13 @@ def eval_step(state: TrainState, raw_images: torch.Tensor, mask: torch.Tensor,
             loss_i = nll_i + g_i * adv.g_weight + q_loss
         else:
             loss_i = nll_i + q_loss
-        extra = {"perc_loss": masked_mean(p_i), "gen_loss": masked_mean(g_i),
-                 "disc_loss": masked_mean(d_i)}
     metrics = {
         "loss": masked_mean(loss_i), "l1_loss": masked_mean(l1_i),
         "l2_loss": masked_mean(l2_i),
         # the JAX step's cross-shard weighting of the masked q_loss, on one shard
         "quant_loss": q_loss * n_valid / n_valid.clamp(min=1.0),
-        **extra, "n_valid": n_valid,
+        "perc_loss": masked_mean(p_i), "gen_loss": masked_mean(g_i),
+        "disc_loss": masked_mean(d_i), "n_valid": n_valid,
     }
     usage = count_code_usage(codes, state.usage_count.shape[0], mask=mask)
     return metrics, usage, denormalize(recon)
