@@ -83,7 +83,28 @@ exit and no result line:
    then not) on 64 images; B3 and B4 launched, ``g_weight`` finite and > 0,
    R1 > 0 on step 0 only; then one non-R1 fp32 step of that config (TF32
    off) on 32 of its images, fused against plain: every gradient and the
-   adaptive ``g_weight`` within ``GRAD_SHARE``.
+   adaptive ``g_weight`` within ``GRAD_SHARE``;
+11. eval: on the cli phase's packs, plus a seeded ``test.pack`` of 64 256^2
+   images and seeded FID-inception weights (``random_inception_npz``): the
+   eval CLI (``vqvae_tpu_torch.cli.evaluate.main``) in process on leg (a)'s
+   ``last/`` snapshot (``ema_vqvae.yaml``, N = 4096) at batch 32, fp32 with
+   TF32 off, first with ``nearest_codes`` forced to its plain fp32 version,
+   then as it is: every metric finite and rFID present, B1 launched once per
+   batch (and never in the plain run); the two runs: the same latents, codes
+   equal but for near-ties, mse / psnr / ssim within ``METRIC_RTOL``, usage
+   and perplexity those of each run's codes; the card's Inception features
+   of 8 images against the CPU's within ``FEATURE_SHARE`` of the largest
+   entry; the token-export CLI (``cli.tokenize_dataset.main``) at full width
+   on ``standard_vqvae.yaml`` and ``entropy_vqvae.yaml`` from seeded random
+   weights saved as a port snapshot, over the 1280 train images at batch 64:
+   B1 once per batch, the ``.npy`` equal to B1's codes, those against plain
+   fp32 argmin on the card by the near-tie rule; 4 bf16 and 2 fp32
+   ``entropy_vqvae.yaml`` train steps at batch 32 (finite; each step's
+   quantizer loss within ``ENTROPY_LOSS_RTOL`` of a float64 recomputation on
+   its latents; no nearest-code kernel: the entropy forward takes the
+   library matmul, as JAX's); times: evaluate_checkpoint images/s, the
+   Inception batch, ``FID.compute``'s host time, tokenize images/s, the
+   entropy step.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a visible CUDA device it exits
@@ -93,6 +114,7 @@ non-zero before doing anything.
 from __future__ import annotations
 
 import collections
+import copy
 import functools
 import json
 import math
@@ -112,8 +134,13 @@ import torch
 import yaml
 
 from vqvae_tpu_torch import load_config, profile_tokenizer
+from vqvae_tpu_torch.cli import evaluate as cli_evaluate
+from vqvae_tpu_torch.cli import tokenize_dataset as cli_tokenize
 from vqvae_tpu_torch.cli import train as cli_train
 from vqvae_tpu_torch.data.packed import PackedDataset, write_packed
+from vqvae_tpu_torch.eval import fid as fid_module
+from vqvae_tpu_torch.eval.inception import make_pool3_extractor
+from vqvae_tpu_torch.models import quantizers
 from vqvae_tpu_torch.models.preprocess import preprocess_batch
 from vqvae_tpu_torch.models.vqvae import VQVAE
 from vqvae_tpu_torch.ops import _build, fused_dbwd, fused_dbwd_cuda, vq_cuda
@@ -123,12 +150,15 @@ from vqvae_tpu_torch.ops.vq import (code_mismatches, nearest_codes, nearest_code
 from vqvae_tpu_torch.train import loop
 from vqvae_tpu_torch.train.loop import Trainer
 from vqvae_tpu_torch.train.native_schedulers import build_native_lr_scheduler
+from vqvae_tpu_torch.utils.checkpoint import CheckpointManager
+from vqvae_tpu_torch.utils.convert import random_inception_npz
 
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "example_confs" / "standard_vqvae.yaml"
 TRAIN_CONFIG = ROOT / "example_confs" / "ema_vqvae.yaml"
 GAN_CONFIG = ROOT / "example_confs" / "gumbel_vqgan.yaml"
 RECIPE_CONFIG = ROOT / "example_confs" / "gumbel_vqgan_1chip.yaml"
+ENTROPY_CONFIG = ROOT / "example_confs" / "entropy_vqvae.yaml"
 SEED = 0
 KERNEL_SHAPES = [(8192, 1024, 256), (256, 1024, 256), (1000, 37, 8), (4097, 1024, 256),
                  (1000, 300, 37)]
@@ -160,6 +190,14 @@ CLI_VAL_IMAGES = 40
 CLI_ACCUM = 8               # leg (a): ema_vqvae.yaml's 256 as 8 micro-batches of 32
 CLI_GAN_BATCH = 32          # leg (c): CLI_GAN_ACCUM micro-batches of 16
 CLI_GAN_ACCUM = 2
+EVAL_IMAGES = 64            # the eval phase's test.pack
+EVAL_BATCH = 32
+TOKENIZE_BATCH = 64         # the token export's batch: M = 64 x 256 latents per B1 launch
+METRIC_RTOL = 1e-5          # eval metrics with B1 against the same run with plain argmin
+FEATURE_SHARE = 1e-4        # card vs CPU Inception features, share of the largest entry
+INCEPTION_IMAGES = 8
+ENTROPY_STEPS = ((torch.bfloat16, 4), (torch.float32, 2))
+ENTROPY_LOSS_RTOL = 1e-4    # entropy quantizer loss vs its float64 recomputation
 # published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): fp32 on the
 # CUDA cores, TF32 on the tensor cores (dense), and device memory
 FP32_FLOPS = 67e12
@@ -1302,15 +1340,14 @@ def _leg_gan(tmp: Path, card: str, device) -> tuple:
     return b3, b4
 
 
-def phase_cli(card: str, device) -> dict:
+def phase_cli(card: str, device, tmp: Path) -> dict:
     """The port's train CLI in process on the card, in bf16 (its default),
-    with torch's default TF32 settings (the CLI's own), on seeded packed data:
-    legs (a) EMA with accumulation, reinit and resume; (b) the published
-    one-chip recipe; (c) the adaptive-lambda GAN with the fused D backward.
-    -> this phase's launches per kernel."""
+    with torch's default TF32 settings (the CLI's own), on seeded packed data
+    written under ``tmp``: legs (a) EMA with accumulation, reinit and resume;
+    (b) the published one-chip recipe; (c) the adaptive-lambda GAN with the
+    fused D backward. -> this phase's launches per kernel."""
     size = load_config(str(RECIPE_CONFIG)).image_size
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as name, _tf32(False, True):
-        tmp = Path(name)
+    with _tf32(False, True):
         _write_packs(tmp / "data", CLI_TRAIN_IMAGES, CLI_VAL_IMAGES, size, SEED + 8)
         _write_packs(tmp / "gan_data", 2 * CLI_GAN_BATCH, CLI_VAL_IMAGES, size, SEED + 9)
         reader = PackedDataset(str(tmp / "data" / "train.pack"))
@@ -1328,6 +1365,309 @@ def phase_cli(card: str, device) -> dict:
         torch.cuda.empty_cache()
     return {"nearest_codes": b1, "nearest_codes_stats": b2, "blur_t_gate": b3,
             "skip_fanout_bwd": b4}
+
+
+class _CodeSpy:
+    """While it is entered, ``models.quantizers.nearest_codes`` (what every
+    quantizer's lookup calls) is ``fn`` wrapped: each call's latents, codebook
+    and codes are kept on the card. ``fn`` is the dispatcher itself (B1 on the
+    card, which counts its launches) or ``nearest_codes_reference``."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, []
+
+    def __enter__(self):
+        def spy(flat_x, codebook):
+            codes = self.fn(flat_x, codebook)
+            self.calls.append((flat_x.detach().clone(), codebook.detach(), codes))
+            return codes
+
+        self._patch = mock.patch.object(quantizers, "nearest_codes", spy)
+        self._patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._patch.stop()
+
+    def rows(self):
+        """-> (latents (M, D), the codebook, codes (M,)) over every call."""
+        cb = self.calls[0][1]
+        check(all(c[1] is cb or torch.equal(c[1], cb) for c in self.calls),
+              "one codebook across the calls")
+        return (torch.cat([c[0] for c in self.calls]), cb,
+                torch.cat([c[2] for c in self.calls]))
+
+
+def _evaluate_cli(params: str, data: Path, ckpt: Path):
+    """``cli.evaluate.main`` in process on the card, ``evaluate_checkpoint``
+    timed on the host clock between synchronisations, and inside it the
+    extractor's load and ``FID.compute`` on their own. -> (results, {"eval",
+    "load", "compute": seconds})."""
+    real_eval, real_compute = cli_evaluate.evaluate_checkpoint, fid_module.FID.compute
+    real_load = fid_module.load_inception_extractor
+    seen = {}
+
+    def timed_load(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = real_load(*args, **kwargs)
+        torch.cuda.synchronize()
+        seen["load"] = time.perf_counter() - t0
+        return out
+
+    def timed_eval(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_eval(*args, **kwargs)
+        torch.cuda.synchronize()
+        seen["eval"] = time.perf_counter() - t0
+        return out
+
+    def timed_compute(self):
+        t0 = time.perf_counter()
+        out = real_compute(self)
+        seen["compute"] = time.perf_counter() - t0
+        return out
+
+    with mock.patch.object(cli_evaluate, "evaluate_checkpoint", timed_eval), \
+            mock.patch.object(fid_module, "load_inception_extractor", timed_load), \
+            mock.patch.object(fid_module.FID, "compute", timed_compute):
+        results = cli_evaluate.main(["--params_file", params, "--dataloader", "packed",
+                                     "--dataset_path", str(data), "--batch_size",
+                                     str(EVAL_BATCH), "--seed", str(SEED), "--loading_path",
+                                     str(ckpt), "--workers", "4"])
+    return results, seen
+
+
+def _eval_leg(tmp: Path, card: str, device, weights: str) -> int:
+    """The eval CLI on the EMA leg's ``last/`` snapshot (ema_vqvae.yaml, N =
+    4096) with ``nearest_codes`` forced to its plain version, then as it is
+    (B1); the card's Inception against the CPU's. -> B1 launches of the
+    second run."""
+    params, ckpt = str(tmp / "ema_accum.yaml"), tmp / "ckpt" / "ema" / "last"
+    # the plain run first: it pays the fp32 set-up, so the B1 run is timed warm
+    _reset_counts()
+    with _CodeSpy(nearest_codes_reference) as plain_spy:
+        plain, t_cold = _evaluate_cli(params, tmp / "data", ckpt)
+    torch.cuda.synchronize()
+    check(nearest_codes.launches == 0, "eval with plain argmin: no B1 launch")
+    _reset_counts()
+    with _CodeSpy(nearest_codes) as spy:
+        results, t = _evaluate_cli(params, tmp / "data", ckpt)
+    torch.cuda.synchronize()
+    b1 = nearest_codes.launches
+    batches = EVAL_IMAGES // EVAL_BATCH
+    print(f"eval: {{{', '.join(f'{k}: {v:.6f}' for k, v in results.items())}}}; "
+          f"nearest_codes launched {b1} times in {batches} eval batches")
+    check("rfid" in results and all(math.isfinite(v) for v in results.values()),
+          "eval: every metric finite, rFID present")
+    check(b1 == batches and nearest_codes_stats.launches == 0,
+          f"eval: nearest_codes launched once per eval batch ({batches}), B2 never")
+    x, cb, codes = spy.rows()
+    x_plain, _, codes_plain = plain_spy.rows()
+    check(torch.equal(x, x_plain), "eval: the same latents in both runs")
+    _agree(x, cb, codes, codes_plain, f"eval: B1's codes vs plain argmin "
+           f"({near_ties(x.contiguous(), cb.contiguous())} near ties rescored)")
+    for k in ("mse", "psnr", "ssim"):
+        rel = abs(results[k] / plain[k] - 1)
+        print(f"eval: {k} with B1 {results[k]!r}, with plain argmin {plain[k]!r} "
+              f"(relative gap {rel:.3e}, limit {METRIC_RTOL})")
+        check(rel <= METRIC_RTOL, f"eval: {k} with B1 vs with plain argmin")
+    for run, got, want in (("B1", results, codes), ("plain", plain, codes_plain)):
+        _, perplexity, used = quantizers.get_codebook_usage(torch.bincount(
+            want.long(), minlength=cb.shape[0]))
+        check(got["used_codebook"] == float(used) and got["perplexity"] == float(perplexity),
+              f"eval ({run}): used_codebook and perplexity are the usage of its codes")
+    same = torch.equal(codes, codes_plain)
+    check(not same or (results["used_codebook"], results["perplexity"])
+          == (plain["used_codebook"], plain["perplexity"]),
+          "eval: equal codes give equal usage and perplexity")
+    print(f"eval: rFID with B1 {results['rfid']!r}, with plain argmin {plain['rfid']!r}; "
+          f"codes equal: {same}")
+    loop_s = t["eval"] - t["load"] - t["compute"]
+    print(f"time [{card}]: eval ema_vqvae.yaml fp32, TF32 off, {EVAL_IMAGES} images at batch "
+          f"{EVAL_BATCH}: evaluate_checkpoint with B1 {t['eval']:.3f} s (the second call), "
+          f"{EVAL_IMAGES / t['eval']:.1f} images/s: the extractor's load {t['load']:.3f} s, "
+          f"FID.compute (two 2048^2 eigh, float64 on the host) {t['compute']:.3f} s, the "
+          f"batches (eval steps, metrics, Inception) {loop_s:.3f} s, "
+          f"{EVAL_IMAGES / loop_s:.1f} images/s; the first call (plain argmin, fp32 set-up) "
+          f"{t_cold['eval']:.3f} s")
+
+    # the card's Inception against the CPU's, TF32 off
+    reader = PackedDataset(str(tmp / "data" / "test.pack"))
+    images = reader.read_batch(np.arange(EVAL_BATCH))
+    reader.close()
+    on_card = make_pool3_extractor(weights, device)
+    on_cpu = make_pool3_extractor(weights, "cpu")
+    got = on_card(images[:INCEPTION_IMAGES])
+    want = on_cpu(images[:INCEPTION_IMAGES])
+    share = float(np.abs(got - want).max() / np.abs(want).max())
+    print(f"eval: Inception pool3 features of {INCEPTION_IMAGES} images, card vs CPU: "
+          f"max |diff| {share:.3e} of the largest entry (limit {FEATURE_SHARE})")
+    check(share <= FEATURE_SHARE, "eval: the card's Inception features vs the CPU's")
+    ms = cuda_ms(lambda: on_card(images), reps=1, windows=3)
+    print(f"time [{card}]: Inception (uint8 {images.shape[1]}^2 -> resize 299 -> pool3, fp32, "
+          f"TF32 off, features to the host) batch {EVAL_BATCH}: {ms:.2f} ms, "
+          f"{EVAL_BATCH * 1000 / ms:.1f} images/s")
+    return b1
+
+
+class _TokenSpy:
+    """While it is entered, two CUDA events on the stream around each
+    ``VQVAE.get_tokens`` call, no synchronisation between calls; once left,
+    ``ms`` holds each call's time and ``n`` its images."""
+
+    def __enter__(self):
+        real = VQVAE.get_tokens
+        self._events = []
+
+        def get_tokens(model, images, *args, **kwargs):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = real(model, images, *args, **kwargs)
+            end.record()
+            self._events.append((start, end, images.shape[0]))
+            return out
+
+        self._patch = mock.patch.object(VQVAE, "get_tokens", get_tokens)
+        self._patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._patch.stop()
+        torch.cuda.synchronize()
+        self.ms = [start.elapsed_time(end) for start, end, _ in self._events]
+        self.n = [n for _, _, n in self._events]
+
+
+def _tokenize_leg(tmp: Path, card: str, device, config: Path) -> int:
+    """The token-export CLI at full width on ``config`` from seeded random
+    weights saved as a port snapshot, over the cli phase's train.pack. ->
+    B1 launches."""
+    name = config.stem
+    trainer = Trainer(load_config(str(config)), learning_rate=1e-4, seed=SEED,
+                      steps_per_epoch=1, device=device)
+    CheckpointManager(str(tmp / "tok_ckpt"), name).save(trainer.init_state(), 0)
+    del trainer
+    torch.cuda.empty_cache()
+    out = tmp / "tokens" / name
+    _reset_counts()
+    with _CodeSpy(nearest_codes) as spy, _TokenSpy() as timing:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        manifest = cli_tokenize.main(["--params_file", str(config), "--loading_path",
+                                      str(tmp / "tok_ckpt" / name / "last"), "--dataset_path",
+                                      str(tmp / "data"), "--output_folder", str(out),
+                                      "--splits", "train", "--batch_size", str(TOKENIZE_BATCH),
+                                      "--dataloader", "packed", "--workers", "4",
+                                      "--seed", str(SEED)])
+        wall = time.perf_counter() - t0
+    b1 = nearest_codes.launches
+    n_batches = -(-CLI_TRAIN_IMAGES // TOKENIZE_BATCH)
+    check(b1 == n_batches and nearest_codes_stats.launches == 0,
+          f"tokenize {name}: nearest_codes launched once per batch ({n_batches}), B2 never")
+    tokens = np.load(out / "train_tokens.npy")
+    x, cb, codes = spy.rows()
+    seq = manifest["latent_tokens"]
+    check(tokens.dtype == np.int32 and tokens.shape == (CLI_TRAIN_IMAGES, seq)
+          and np.array_equal(tokens, codes.reshape(-1, seq).cpu().numpy()),
+          f"tokenize {name}: the .npy holds the tokens B1 picked")
+    _agree(x, cb, codes, nearest_codes_reference(x, cb),
+           f"tokenize {name}: B1's tokens vs plain fp32 argmin on the card "
+           f"({near_ties(x.contiguous(), cb.contiguous())} near ties rescored)")
+    steady = statistics.mean(timing.ms[1:])
+    print(f"time [{card}]: tokenize {name} fp32, TF32 off, {CLI_TRAIN_IMAGES} images at batch "
+          f"{TOKENIZE_BATCH} from train.pack: get_tokens by CUDA events, ms per batch "
+          f"{timing.ms[0]:.1f} (first) then mean {steady:.1f}, "
+          f"{TOKENIZE_BATCH * 1000 / steady:.1f} images/s; the CLI's wall time {wall:.2f} s (snapshot load, loader and .npy "
+          f"included), {CLI_TRAIN_IMAGES / wall:.1f} images/s; nearest_codes launched {b1} "
+          f"times; {len(np.unique(tokens))} distinct tokens")
+    return b1
+
+
+class _QuantizerCalls:
+    """A forward hook on the quantizer: each train=True call's latents, the
+    codebook it used and the loss it returned."""
+
+    def __init__(self, quantizer):
+        self.calls = []
+        self._handle = quantizer.register_forward_hook(self._post, with_kwargs=True)
+
+    def _post(self, module, args, kwargs, out):
+        if kwargs.get("train"):
+            self.calls.append((args[0].detach().clone(), module.codebook.weight.detach().clone(),
+                               float(out[2])))
+
+    def remove(self):
+        self._handle.remove()
+
+
+def _entropy_steps(card: str, device) -> None:
+    """4 bf16 and 2 fp32 full-width entropy_vqvae.yaml train steps at batch
+    32 on one fixed batch: finite metrics, each step's quantizer loss equal
+    to a float64 recomputation on that step's latents and codebook (the
+    distance matmul in true fp32), and no nearest-code kernel (the entropy
+    forward takes its codes from the full distance matrix, a library
+    matmul, as the JAX package's)."""
+    cfg = load_config(str(ENTROPY_CONFIG))
+    gen = torch.Generator(device=device).manual_seed(SEED + 10)
+    size = cfg.image_size
+    batch = {"image": torch.rand(TRAIN_BATCH, size, size, 3, device=device, generator=gen)}
+    for dtype, n_steps in ENTROPY_STEPS:
+        name = str(dtype).removeprefix("torch.")
+        trainer = Trainer(cfg, learning_rate=cfg.training.scaled_lr(), seed=SEED,
+                          steps_per_epoch=STEPS_PER_EPOCH, compute_dtype=dtype, device=device)
+        state = trainer.init_state()
+        spy = _QuantizerCalls(state.model.quantizer)
+        _reset_counts()
+        history = [{k: float(v) for k, v in trainer.train_step(state, batch, epoch=0)[1].items()}
+                   for _ in range(n_steps)]
+        spy.remove()
+        check(nearest_codes.launches == 0 and nearest_codes_stats.launches == 0,
+              f"entropy {name}: the train steps launch no nearest-code kernel")
+        check(all(math.isfinite(v) for m in history for v in m.values()),
+              f"entropy {name}: every metric finite")
+        q64 = copy.deepcopy(state.model.quantizer).double()
+        gaps = []
+        for z, cb, loss in spy.calls:
+            with torch.no_grad():
+                q64.codebook.weight.copy_(cb)
+                want = float(q64(z.double(), train=True)[2])
+            gaps.append(abs(loss / want - 1))
+        print(f"entropy slice {name}: {n_steps} steps at batch {TRAIN_BATCH}, loss "
+              + " ".join(f"{m['loss']:.5f}" for m in history) + "; quant_loss "
+              + " ".join(f"{m['quant_loss']:.5f}" for m in history) + "; l2_loss "
+              + " ".join(f"{m['l2_loss']:.5f}" for m in history)
+              + f"; usage {int((state.usage_count > 0).sum())} codes used; each step's "
+              f"quantizer loss vs float64 on its latents: relative gap "
+              + " ".join(f"{g:.2e}" for g in gaps) + f" (limit {ENTROPY_LOSS_RTOL})")
+        check(len(gaps) == n_steps and max(gaps) <= ENTROPY_LOSS_RTOL,
+              f"entropy {name}: the quantizer loss equals its float64 recomputation")
+        ms = cuda_ms(lambda: trainer.train_step(state, batch, epoch=0), reps=1, windows=3)
+        print(f"time [{card}]: train_step entropy {name} batch {TRAIN_BATCH}: {ms:.2f} ms, "
+              f"{TRAIN_BATCH * 1000 / ms:.1f} images/s")
+        del trainer, state, spy, q64
+        torch.cuda.empty_cache()
+
+
+def phase_eval(card: str, device, tmp: Path) -> dict:
+    """The eval and token-export CLIs in process on the card, on the cli
+    phase's packs and snapshots under ``tmp`` plus a seeded test.pack and
+    seeded Inception weights, then the entropy quantizer's train steps.
+    -> this phase's B1 launches, by leg."""
+    size = load_config(str(TRAIN_CONFIG)).image_size
+    rs = np.random.RandomState(SEED + 11)
+    write_packed(str(tmp / "data" / "test.pack"),
+                 (rs.randint(0, 256, (size, size, 3), dtype=np.uint8)
+                  for _ in range(EVAL_IMAGES)), size)
+    weights = random_inception_npz(tmp / "inception_fid.npz", seed=SEED + 12)
+    with mock.patch.dict(os.environ, {"VQVAE_TPU_INCEPTION_WEIGHTS": weights}):
+        launches = {"eval": _eval_leg(tmp, card, device, weights)}
+    torch.cuda.empty_cache()
+    for config in (CONFIG, ENTROPY_CONFIG):
+        launches[f"tokenize {config.stem}"] = _tokenize_leg(tmp, card, device, config)
+        torch.cuda.empty_cache()
+    _entropy_steps(card, device)
+    return launches
 
 
 def _record(name, source, replaces, launches, max_abs_err, shape, t) -> dict:
@@ -1364,24 +1704,32 @@ def main() -> None:
     torch.cuda.empty_cache()
     b256 = (DBWD_BATCH, DBWD_BLOCKS[0][0], DBWD_BLOCKS[0][1], DBWD_BLOCKS[0][1])
     dbwd = phase_dbwd_times(device, card, shape_launches)
-    t_cli = time.perf_counter()
-    cli = phase_cli(card, device)
-    print(f"time [{card}]: cli: the phase took {time.perf_counter() - t_cli:.1f} s; "
-          f"launches {cli}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as name:
+        tmp = Path(name)
+        t_cli = time.perf_counter()
+        cli = phase_cli(card, device, tmp)
+        print(f"time [{card}]: cli: the phase took {time.perf_counter() - t_cli:.1f} s; "
+              f"launches {cli}")
+        t_eval = time.perf_counter()
+        evals = phase_eval(card, device, tmp)
+        b1_eval = sum(evals.values())
+        print(f"time [{card}]: eval: the phase took {time.perf_counter() - t_eval:.1f} s; "
+              f"nearest_codes launches {evals}, {b1_eval} in all")
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [
-        # launches: the tokenizer path's, the training path's and the train
+        # launches: the tokenizer path's, the training path's, the train
         # CLI's (cli_launches: the last alone, counted from 0 for each of its
-        # legs); max_abs_err:
+        # legs) and the eval and token-export CLIs' (eval_launches); max_abs_err:
         # the largest float64 score gap between the kernel's and the plain
         # version's pick over every compared row (0.0 where all agree)
         # bound_ms: 3 TF32 passes x 2MND on the tensor cores (bound_ops; the
         # FFMA bound is in the time lines); device_ms: the kernels' device
         # time (profiler), ms: CUDA events around the wrapper
         _record("nearest_codes", "vqvae_tpu_torch/csrc/nearest_codes.cu",
-                "vqvae_tpu/ops/vq_pallas.py:141", b1_tokenizer + b1_train + cli["nearest_codes"],
+                "vqvae_tpu/ops/vq_pallas.py:141",
+                b1_tokenizer + b1_train + cli["nearest_codes"] + b1_eval,
                 max(kernel_gap, slice_gap), (8192, 1024, 256), b1) | _scan_bound(b1)
-        | {"cli_launches": cli["nearest_codes"]},
+        | {"cli_launches": cli["nearest_codes"], "eval_launches": b1_eval},
         # max_abs_err: the largest |dw - dw_plain| over the compared shapes
         _record("nearest_codes_stats", "vqvae_tpu_torch/csrc/nearest_codes_stats.cu",
                 "vqvae_tpu/ops/vq_pallas.py:89", b2_train + cli["nearest_codes_stats"], stats_err,

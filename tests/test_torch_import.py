@@ -1,8 +1,9 @@
 """The PyTorch port stands apart from JAX: importing it and every submodule
-loads neither the JAX package nor jax / flax / optax / orbax, no file of it
-imports them, its own config parser equals the JAX package's, its entry
-points (``run_training`` and the train CLI among them) ask for the card
-unless told otherwise, its copies of the host sources keep the C interface
+loads neither the JAX package nor jax / flax / optax / orbax nor the JAX
+CLIs (``evaluate``, ``tools.*``), no file of it imports them, its own config
+parser equals the JAX package's, its entry points (``run_training``, the
+train, eval and token-export CLIs and the FID extractor among them) ask for
+the card unless told otherwise, its copies of the host sources keep the C interface
 their loaders bind, ``chip_smoke.py`` refuses to run without a GPU, and the
 profiler sorts kernel names into the kinds it reports.
 """
@@ -32,8 +33,12 @@ for name in names:
 cfg = vqvae_tpu_torch.load_config("example_confs/standard_vqvae.yaml")
 assert vqvae_tpu_torch.VQVAE.__name__ == "VQVAE" and cfg.latent_size == 16
 assert {"vqvae_tpu_torch.cli.train", "vqvae_tpu_torch.cli.create_packed_dataset",
-        "vqvae_tpu_torch.train.loop", "vqvae_tpu_torch.data.dataset"} <= set(names)
-loaded = sorted(m for m in ("vqvae_tpu", "jax", "flax", "optax", "orbax") if m in sys.modules)
+        "vqvae_tpu_torch.cli.evaluate", "vqvae_tpu_torch.cli.tokenize_dataset",
+        "vqvae_tpu_torch.eval.metrics", "vqvae_tpu_torch.eval.inception",
+        "vqvae_tpu_torch.eval.fid", "vqvae_tpu_torch.train.loop",
+        "vqvae_tpu_torch.data.dataset"} <= set(names)
+loaded = sorted(m for m in ("vqvae_tpu", "jax", "flax", "optax", "orbax", "evaluate", "tools",
+                            "torchvision") if m in sys.modules)
 print(len(names), loaded)
 """
 
@@ -43,12 +48,13 @@ def test_import_loads_no_jax():
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n_modules, loaded = out.stdout.split(maxsplit=1)
-    assert int(n_modules) >= 26
+    assert int(n_modules) >= 44
     assert loaded.strip() == "[]"
 
 
 def test_no_source_file_imports_jax():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|optax)\b", re.M)
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|orbax|evaluate|tools|torchvision)\b",
+                         re.M)
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     offenders = [str(f.relative_to(ROOT)) for f in files if pattern.search(f.read_text())]
     assert offenders == []
@@ -153,6 +159,37 @@ def test_training_entry_points_ask_for_the_card_by_default(monkeypatch, tmp_path
                                  "x", "--run_name", "x", "--seed", "0"])
     assert args.device == "cuda" and args.precision == "bf16"
     assert "device" not in vars(create_packed_dataset.get_args(["--output_folder", "x"]))
+
+
+def test_eval_entry_points_ask_for_the_card_by_default(monkeypatch, tmp_path):
+    """The eval and token-export CLIs' ``--device`` defaults to ``cuda`` and
+    raises without a card; the FID extractor and its loader default to
+    ``cuda``; ``restore_for_eval`` has no device of its own (it follows the
+    template state)."""
+    import inspect
+
+    from vqvae_tpu_torch.cli import evaluate as cli_evaluate
+    from vqvae_tpu_torch.cli import tokenize_dataset as cli_tokenize
+    from vqvae_tpu_torch.eval import fid, inception
+    from vqvae_tpu_torch.utils import checkpoint
+
+    args = cli_evaluate.parse_args(["--params_file", "x", "--dataset_path", "x",
+                                    "--batch_size", "4", "--seed", "0", "--loading_path", "x"])
+    assert args.device == "cuda"
+    args = cli_tokenize.parse_args(["--params_file", "x", "--loading_path", "x",
+                                    "--dataset_path", "x", "--output_folder", "x"])
+    assert args.device == "cuda" and args.batch_size == 256 and args.workers == 4
+    for fn in (inception.make_pool3_extractor, fid.load_inception_extractor):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    assert "device" not in inspect.signature(checkpoint.restore_for_eval).parameters
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        cli_evaluate.main(["--params_file", "x", "--dataset_path", "x", "--batch_size", "4",
+                           "--seed", "0", "--loading_path", "x", "--allow_missing_rfid"])
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        cli_tokenize.main(["--params_file", "x", "--loading_path", "x", "--dataset_path", "x",
+                           "--output_folder", str(tmp_path)])
 
 
 _C_TYPES = {"double": ctypes.c_double, "void*": ctypes.c_void_p, "const char*": ctypes.c_char_p,

@@ -166,9 +166,6 @@ def test_train_preprocess_needs_a_generator():
 
 @pytest.mark.parametrize("change,match", [
     ({"loss": {"l1_weight": 0.8, "l2_weight": 0.2, "perc_weight": 1.0}}, "loss.*ROADMAP"),
-    ({"quantizer": {**RAW["quantizer"], "type": "entropy", "params": {
-        "ent_loss_ratio": 0.1, "ent_temperature": 0.01, "ent_loss_type": "softmax",
-        "commitment_cost": 0.25}}}, "entropy.*ROADMAP.*item 6"),
 ])
 def test_trainer_refuses_what_it_does_not_carry(change, match):
     cfg = parse_config({**RAW, **change})

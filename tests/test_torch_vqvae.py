@@ -166,8 +166,3 @@ def test_codebook_usage_matches(masked):
     _, perplexity, used = tq.get_codebook_usage(torch.zeros(32, dtype=torch.int32))
     assert perplexity.item() == 1.0 and used.item() == 0.0
 
-
-@pytest.mark.parametrize("q_type", ["entropy"])
-def test_unported_quantizers_name_their_roadmap_item(q_type):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tq.make_quantizer(q_type, 32, 8, {})

@@ -1,4 +1,5 @@
-"""Shared by ``test_torch_train_standard.py`` and ``test_torch_train_ema.py``:
+"""Shared by ``test_torch_train_standard.py``, ``test_torch_train_ema.py`` and
+``test_torch_entropy.py``:
 the port's ``Trainer`` against the JAX package's on the CPU, from one state.
 
 Both sides run fp32 without augmentations (``augment=False``, as
@@ -36,7 +37,9 @@ EVAL_MASK = np.array([True] * 6 + [False] * 2)
 
 def raw_config(q_type: str) -> dict:
     params = {"standard": {"commitment_cost": 0.25},
-              "ema": {"commitment_cost": 0.25, "decay": 0.95, "epsilon": 1e-5}}[q_type]
+              "ema": {"commitment_cost": 0.25, "decay": 0.95, "epsilon": 1e-5},
+              "entropy": {"commitment_cost": 0.25, "ent_loss_ratio": 0.1,
+                          "ent_temperature": 0.01, "ent_loss_type": "softmax"}}[q_type]
     return {
         "image_size": IMG,
         "autoencoder": {"channels": 32, "num_res_blocks": NRB, "channel_multipliers": [1, 2]},
@@ -127,7 +130,7 @@ def check_first_step(pair):
     got_usage, want_usage = pair["usage"]
     np.testing.assert_array_equal(got_usage.numpy(), want_usage)
     buffers, vq_state = pair["buffers"]
-    if pair["q_type"] == "standard":
+    if pair["q_type"] != "ema":
         assert buffers == {} and vq_state is None
         return
     q = vq_state["quantizer"]

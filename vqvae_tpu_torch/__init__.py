@@ -1,12 +1,13 @@
 """vqvae_tpu_torch: the PyTorch / CUDA port of ``vqvae_tpu`` for NVIDIA Hopper.
 
-Module paths mirror ``vqvae_tpu/``. The port carries the standard-VQ
-tokenizer API (``VQVAE.get_tokens`` / ``reconstruct`` /
-``reconstruct_from_tokens``) and the non-GAN training step with the EMA
-quantizer (``train.loop.Trainer``), with the nearest-code kernels written for
-``sm_90a`` (``csrc/nearest_codes.cu``, ``csrc/nearest_codes_stats.cu``). The
-package imports ``torch`` and never ``jax`` nor ``vqvae_tpu``; configs are
-parsed by its own ``config`` module.
+Module paths mirror ``vqvae_tpu/``. The port carries the VQ-VAE / VQGAN with
+all four quantizers and its tokenizer API (``VQVAE.get_tokens`` /
+``reconstruct`` / ``reconstruct_from_tokens``), the training step and loop
+with the LPIPS + StyleGAN2 loss stack (``train.loop``), eval (``eval``:
+L2 / PSNR / SSIM / rFID) and the CLIs (``cli``: train, evaluate,
+tokenize_dataset, create_packed_dataset), with the TPU kernels written for
+``sm_90a`` (``csrc/``). The package imports ``torch`` and never ``jax`` nor
+``vqvae_tpu``; configs are parsed by its own ``config`` module.
 """
 
 __version__ = "0.1.0"

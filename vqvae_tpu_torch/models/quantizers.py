@@ -1,5 +1,5 @@
-"""Standard, EMA and gumbel vector quantizers and codebook helpers, dead-code
-reinit among them (counterpart of ``vqvae_tpu/models/quantizers.py:44-381``).
+"""Standard, EMA, gumbel and entropy vector quantizers and codebook helpers,
+dead-code reinit among them (counterpart of ``vqvae_tpu/models/quantizers.py``).
 
 Quantizers take NCHW latents ``z: (B, D, H, W)`` and flatten them in
 (b, h, w) row-major order, as the JAX package flattens its NHWC latents, so
@@ -13,9 +13,11 @@ from typing import Optional, Tuple
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from vqvae_tpu_torch.ops.vq import nearest_codes, nearest_codes_stats
+from vqvae_tpu_torch.utils.precision import full_fp32
 
 
 def codebook_init(num_embeddings: int, embedding_dim: int,
@@ -321,10 +323,88 @@ class GumbelVectorQuantizer(nn.Module):
         return flat_z.argmax(-1).int().reshape(b, h * w)
 
 
+class EntropyVectorQuantizer(VectorQuantizer):
+    """MaskGIT entropy-regularized VQ (counterpart of
+    ``vqvae_tpu/models/quantizers.py:384-428``, reference
+    vector_quantizers.py:277-381).
+
+    The entropy loss needs the whole distance matrix
+    ``|x|^2 - 2 x c^T + |c|^2``, so the forward pass forms it with one fp32
+    matmul, TF32 off (the JAX package's ``Precision.HIGHEST``), and takes its
+    codes as the ``argmin`` of that matrix, as JAX does. ``vec_to_codes`` (the
+    tokenizer's path) goes through ``nearest_codes``, kernel B1 on the card.
+    """
+
+    def __init__(self, num_embeddings: int, embedding_dim: int, ent_loss_ratio: float = 0.1,
+                 ent_temperature: float = 0.01, ent_loss_type: str = "softmax",
+                 commitment_cost: float = 0.25, generator: Optional[torch.Generator] = None):
+        super().__init__(num_embeddings, embedding_dim, commitment_cost, generator)
+        self.ent_loss_ratio = ent_loss_ratio
+        self.ent_temperature = ent_temperature
+        self.ent_loss_type = ent_loss_type
+
+    def forward(self, z: torch.Tensor, train: bool = False,
+                mask: Optional[torch.Tensor] = None):
+        """NCHW latents -> (quantized NCHW, codes (B, H*W) int32, commitment +
+        codebook + entropy loss); ``train`` changes nothing here."""
+        codebook = self.codebook.weight
+        flat_x, (b, h, w, d) = _flatten(z)
+        rw = _row_weights(mask, h * w)
+
+        x2 = (flat_x ** 2).sum(1, keepdim=True)
+        c2 = (codebook ** 2).sum(1)[None]
+        with full_fp32():
+            xc = flat_x @ codebook.T
+        distances = x2 - 2 * xc + c2
+
+        codes = distances.detach().argmin(1)
+        quantized = torch.index_select(codebook, 0, codes)
+
+        e_loss = self.commitment_cost * _wmean((quantized.detach() - flat_x) ** 2, rw)
+        q_loss = _wmean((quantized - flat_x.detach()) ** 2, rw)
+        ent = self.ent_loss_ratio * entropy_loss(-distances, self.ent_temperature,
+                                                 self.ent_loss_type, row_weights=rw)
+
+        quantized = flat_x + (quantized - flat_x).detach()
+        quantized = quantized.reshape(b, h, w, d).permute(0, 3, 1, 2).contiguous()
+        return quantized, codes.int().reshape(b, h * w), e_loss + q_loss + ent
+
+
+def entropy_loss(affinity: torch.Tensor, temperature: float, loss_type: str = "softmax",
+                 row_weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """sample_entropy - avg_entropy over temperature-scaled affinities (M, N)
+    (counterpart of ``vqvae_tpu/models/quantizers.py:431-464``, reference
+    vector_quantizers.py:296-328). ``row_weights`` (M,): masked rows count in
+    neither the per-sample entropy's mean nor the batch-average distribution
+    (the average couples rows, so the mask has to reach this reduction)."""
+    n_classes = affinity.shape[-1]
+    affinity = affinity / temperature
+    probs = affinity.softmax(-1)
+
+    if loss_type == "softmax":
+        target_probs = probs
+    elif loss_type == "argmax":
+        codes = affinity.argmax(-1)
+        one_hots = F.one_hot(codes, n_classes).to(probs.dtype)
+        target_probs = probs - (probs - one_hots).detach()
+    else:
+        raise ValueError(f"Entropy loss {loss_type} not supported")
+
+    if row_weights is None:
+        avg_probs = target_probs.mean(0)
+    else:
+        avg_probs = ((target_probs * row_weights[:, None]).sum(0)
+                     / torch.clamp(row_weights.sum(), min=1.0))
+    avg_entropy = -(avg_probs * torch.log(avg_probs + 1e-5)).sum()
+
+    log_probs = F.log_softmax(affinity + 1e-5, dim=-1)
+    sample_entropy = _wmean(-(target_probs * log_probs).sum(-1), row_weights)
+    return sample_entropy - avg_entropy
+
+
 def make_quantizer(q_type: str, num_embeddings: int, embedding_dim: int,
                    params: dict, generator: Optional[torch.Generator] = None) -> nn.Module:
-    """Quantizer factory (reference model.py:89-124); the port carries the
-    standard, EMA and gumbel quantizers."""
+    """Quantizer factory (reference model.py:89-124)."""
     if q_type == "standard":
         return VectorQuantizer(num_embeddings, embedding_dim,
                                commitment_cost=float(params["commitment_cost"]),
@@ -342,6 +422,10 @@ def make_quantizer(q_type: str, num_embeddings: int, embedding_dim: int,
                                      kl_cost=float(params["kl_cost"]),
                                      generator=generator)
     if q_type == "entropy":
-        raise NotImplementedError(
-            "the entropy quantizer is not ported yet (ROADMAP.md queue A, item 6)")
+        return EntropyVectorQuantizer(num_embeddings, embedding_dim,
+                                      ent_loss_ratio=float(params["ent_loss_ratio"]),
+                                      ent_temperature=float(params["ent_temperature"]),
+                                      ent_loss_type=str(params["ent_loss_type"]),
+                                      commitment_cost=float(params["commitment_cost"]),
+                                      generator=generator)
     raise ValueError(f"unrecognized quantizer: {q_type}")

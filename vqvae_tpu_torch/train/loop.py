@@ -22,9 +22,8 @@ too), reconstruction panels at batch 2, epoch means of the step metrics
 ``reinit_every_n_epochs``, checkpoints every N epochs and ``last``. The
 remat gate and the device mesh of the JAX loop are not ported.
 
-Not ported yet, each raising where a config asks for it (ROADMAP.md queue
-A): the entropy quantizer and LPIPS-AlexNet (a ``loss:`` block without a
-GAN and ``perc_weight > 0``).
+Not ported yet, raising where a config asks for it (ROADMAP.md queue A):
+LPIPS-AlexNet (a ``loss:`` block without a GAN and ``perc_weight > 0``).
 """
 
 from __future__ import annotations
@@ -52,9 +51,6 @@ from vqvae_tpu_torch.utils.logging import MetricLogger, make_recon_panel
 
 
 def _refuse_unported(cfg: Config) -> None:
-    if cfg.quantizer.type == "entropy":
-        raise NotImplementedError(
-            "the entropy quantizer is not ported yet (ROADMAP.md queue A, item 6)")
     if cfg.loss is not None and not cfg.use_adversarial and cfg.loss.perc_weight != 0.0:
         raise NotImplementedError(
             "a loss: block without adversarial_params takes LPIPS-AlexNet, which is not "

@@ -99,6 +99,21 @@ class CheckpointManager:
         return state, int(payload["epoch"])
 
 
+def restore_for_eval(path: str, template_state: TrainState) -> TrainState:
+    """Load only the model's weights (its buffers, the EMA accumulators among
+    them) and ``step`` from any snapshot into ``template_state``, onto its
+    device (counterpart of ``vqvae_tpu/utils/checkpoint.py:94-122``; the
+    reference's ``load_from_checkpoint(strict=False, load_loss=False)``,
+    evaluate.py:48-49). The optimizers, the generators, the usage counts and
+    the discriminator of the snapshot are ignored, so a GAN run's snapshot
+    loads into a ``loss=None`` eval Trainer. ``step`` matters: the gumbel
+    eval step seeds its noise and reads its temperature from it."""
+    payload = torch.load(Path(path) / STATE_FILE, map_location="cpu", weights_only=True)
+    template_state.model.load_state_dict(payload["model"], strict=True)
+    template_state.step = int(payload["step"])
+    return template_state
+
+
 def latest_checkpoint(save_dir: str, run_name: str) -> Optional[str]:
     last = Path(save_dir) / run_name / "last"
     return str(last) if last.exists() else None

@@ -1,6 +1,7 @@
 """JAX parameters -> state_dicts of the PyTorch port: the inverse of
 ``vqvae_tpu/utils/torch_convert.py`` (``convert_vqvae_state_dict``,
-``convert_discriminator_state_dict``), and the LPIPS weights.
+``convert_discriminator_state_dict``), the LPIPS weights and the FID
+InceptionV3's.
 
 Layout mapping (the JAX package is NHWC, the port NCHW):
 - flax kernel (kh, kw, I, O)  ->  Conv2d weight (O, I, kh, kw)
@@ -12,6 +13,8 @@ Layout mapping (the JAX package is NHWC, the port NCHW):
   ``quantizer.x_to_logits.weight`` (N, N, 1, 1) / ``.bias``
 - discriminator FC weight (in, out)  ->  (out, in); ``b4.fc``'s input axis
   from the NHWC flatten to the NCHW one
+- the converted Inception ``.npz``'s flat keys ``<path>/conv/kernel`` (HWIO)
+  / ``<path>/conv/bias``  ->  ``<path with dots>.conv.weight`` (OIHW) / ``.bias``
 
 Takes numpy arrays (``{'params': {...}[, 'vq_state': {...}]}`` for the VQVAE).
 """
@@ -157,3 +160,50 @@ def convert_lpips_params(params: dict) -> Dict[str, torch.Tensor]:
         if name != "net":
             sd[name] = _t(v)
     return sd
+
+
+def convert_inception_params(flat: dict) -> Dict[str, torch.Tensor]:
+    """The flat dict of the converted FID-inception ``.npz`` (keys such as
+    ``Mixed_5b/branch1x1/conv/kernel``, HWIO kernels with BatchNorm folded in,
+    as ``tools/convert_inception_weights.py`` writes it) -> the state_dict of
+    ``eval.inception.InceptionV3Pool3``."""
+    sd = {}
+    for key, value in flat.items():
+        *path, leaf = key.split("/")
+        prefix = ".".join(path)
+        if leaf == "kernel":
+            sd[f"{prefix}.weight"] = _t(np.transpose(np.asarray(value), (3, 2, 0, 1)))
+        elif leaf == "bias":
+            sd[f"{prefix}.bias"] = _t(value)
+        else:
+            raise KeyError(f"unexpected inception weight {key}")
+    return sd
+
+
+def random_inception_npz(path, seed: int) -> str:
+    """Write seeded FID-inception weights in the converted ``.npz``'s layout:
+    over the sorted keys, one ``RandomState(seed)`` stream draws He-normal
+    kernels (std ``sqrt(2 / (H W I))``) and biases ``0.1 N(0, 1)``, the rule of
+    the fixture in ``tests/test_golden_rfid.py``. For tests and the card's
+    smoke run: the rFID it gives means nothing. The keys and shapes are those
+    of the port's module (built on the meta device). -> the path written."""
+    from vqvae_tpu_torch.eval.inception import InceptionV3Pool3
+    shapes = {}
+    for name, t in InceptionV3Pool3().state_dict().items():
+        prefix, leaf = name.rsplit(".", 1)
+        path_key = prefix.replace(".", "/")
+        if leaf == "weight":
+            o, i, kh, kw = t.shape
+            shapes[f"{path_key}/kernel"] = (kh, kw, i, o)
+        else:
+            shapes[f"{path_key}/bias"] = tuple(t.shape)
+    rs = np.random.RandomState(seed)
+    out = {}
+    for key, shape in sorted(shapes.items()):
+        if key.endswith("/kernel"):
+            fan_in = int(np.prod(shape[:-1]))
+            out[key] = np.asarray(rs.randn(*shape) * np.sqrt(2.0 / fan_in), np.float32)
+        else:
+            out[key] = np.asarray(rs.randn(*shape) * 0.1, np.float32)
+    np.savez(str(path), **out)
+    return str(path)
