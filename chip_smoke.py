@@ -104,7 +104,37 @@ exit and no result line:
    its latents; no nearest-code kernel: the entropy forward takes the
    library matmul, as JAX's); times: evaluate_checkpoint images/s, the
    Inception batch, ``FID.compute``'s host time, tokenize images/s, the
-   entropy step.
+   entropy step;
+12. ddp: data parallelism on the one card, each leg in processes of its own
+   started by torchrun (``python -m torch.distributed.run --standalone``,
+   re-entering this script as ``chip_smoke.py --worker <leg> <dir> ...``;
+   every rank's exit code and findings file checked). (a) the train CLI on
+   ``ema_vqvae.yaml`` at cumulative_bs 32, fp32, TF32 off, cuDNN
+   deterministic, one epoch of 4 steps and its validation, under torchrun
+   at world 1 on NCCL and again without a group: every logged value but the
+   clock's and the final ``state.pt`` bit-identical, B2 once per step, B1 in
+   validation. (b) two ranks on card 0 joined by gloo (NCCL refuses two
+   ranks on one device; gloo's all-reduce of a CUDA tensor is checked
+   first): the ``Trainer`` on ``ema_vqvae.yaml``, fp32, TF32 off, no
+   augmentations, 3 steps of 2 x 16 rows of one global batch against one
+   process on the 32: each step's reduced EMA counts and ``ema_count``
+   equal, ``ema_weight`` and the codebook within ``DDP_EMA_SHARE`` of their
+   largest entry, every parameter within AdamW's reach (2 lr x steps), the
+   losses within ``DDP_LOSS_RTOL``, the ranks' states bitwise equal, B2
+   once per step per rank. (c) two gloo ranks, ``gumbel_vqgan.yaml`` with
+   the GAN active and the fused D backward, bf16, 16 rows each: an R1 step,
+   then a plain one: finite metrics, R1 > 0 on step 0 only, B3 and B4 on
+   every step of every rank, ``check_replication`` after each step. (d)
+   the eval CLI on two gloo ranks against one, on (a)'s snapshot, the eval
+   phase's ``test.pack`` (64 images) and Inception weights, 24 images per
+   rank's batch on both sides (the ranks' global batch 48; each image meets
+   the same convolution algorithms): mse / psnr / ssim within
+   ``METRIC_RTOL``, usage equal, rFID within
+   ``RFID_RTOL``, B1 once per batch per rank. (e) ``standard_vqvae.yaml``
+   with a ``loss:`` block without a GAN (LPIPS-AlexNet), full width, bf16,
+   3 steps at batch 32 in process: finite, ``perc_loss`` > 0, B1 once per
+   step. Times: ms per step of each leg and rank, the gloo all-reduce's
+   share of the step.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a visible CUDA device it exits
@@ -147,11 +177,13 @@ from vqvae_tpu_torch.ops import _build, fused_dbwd, fused_dbwd_cuda, vq_cuda
 from vqvae_tpu_torch.ops.upfirdn2d import upfirdn2d
 from vqvae_tpu_torch.ops.vq import (code_mismatches, nearest_codes, nearest_codes_reference,
                                     nearest_codes_stats, nearest_codes_stats_reference)
+from vqvae_tpu_torch.parallel import dist as pdist
 from vqvae_tpu_torch.train import loop
 from vqvae_tpu_torch.train.loop import Trainer
 from vqvae_tpu_torch.train.native_schedulers import build_native_lr_scheduler
 from vqvae_tpu_torch.utils.checkpoint import CheckpointManager
 from vqvae_tpu_torch.utils.convert import random_inception_npz
+from vqvae_tpu_torch.utils.introspect import check_replication
 
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "example_confs" / "standard_vqvae.yaml"
@@ -198,6 +230,17 @@ FEATURE_SHARE = 1e-4        # card vs CPU Inception features, share of the large
 INCEPTION_IMAGES = 8
 ENTROPY_STEPS = ((torch.bfloat16, 4), (torch.float32, 2))
 ENTROPY_LOSS_RTOL = 1e-4    # entropy quantizer loss vs its float64 recomputation
+DDP_TRAIN_IMAGES = 128      # ddp (a): one epoch of 4 steps of DDP_BATCH
+DDP_BATCH = 32              # ddp (a), (b): the global batch
+DDP_STEPS = 3               # ddp (b)
+DDP_GAN_ROWS = 16           # ddp (c): rows per rank
+DDP_EVAL_BATCH = 48         # ddp (d): global on 2 ranks (24 per rank, the last padded)
+DDP_EMA_SHARE = 1e-3        # ddp (b): ema_weight, codebook vs one process, share of largest
+DDP_LOSS_RTOL = 1e-4        # ddp (b): each step's loss vs one process
+RFID_RTOL = 1e-3            # ddp (d): rFID on 2 ranks vs 1 (64 images, 2048-d features)
+LPIPS_ALEX_STEPS = 3        # ddp (e)
+DDP_TIMEOUT = 600           # s, per process the ddp phase starts
+UNTIMED_KEYS = ("time", "train/images_per_sec")   # ddp (a): what two runs cannot share
 # published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): fp32 on the
 # CUDA cores, TF32 on the tensor cores (dense), and device memory
 FP32_FLOPS = 67e12
@@ -1670,6 +1713,454 @@ def phase_eval(card: str, device, tmp: Path) -> dict:
     return launches
 
 
+def _run_quiet(cmd: list, what: str, env=None) -> None:
+    """Run ``cmd`` from the checkout's root in a session of its own, at most
+    ``DDP_TIMEOUT`` s (its whole process group is killed past that); a
+    non-zero exit ends the script, after the tail of its output."""
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, start_new_session=True, env=env)
+    try:
+        out, _ = proc.communicate(timeout=DDP_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        proc.communicate()
+        check(False, f"{what}: no end within {DDP_TIMEOUT} s")
+    if proc.returncode != 0:
+        print(out[-6000:])
+    check(proc.returncode == 0, f"{what}: exit code {proc.returncode}")
+
+
+def _torchrun(nproc: int, leg: str, out: Path, *args) -> list:
+    """``python -m torch.distributed.run --standalone --nproc_per_node
+    nproc chip_smoke.py --worker leg out args``: torchrun exits non-zero if
+    any rank does; each rank leaves ``out/rank<r>.pt``. -> those, by rank."""
+    out.mkdir(parents=True, exist_ok=True)
+    # every rank is on this host: gloo and NCCL open their sockets on loopback
+    env = {"GLOO_SOCKET_IFNAME": "lo", "NCCL_SOCKET_IFNAME": "lo", **os.environ}
+    _run_quiet([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc_per_node", str(nproc), str(Path(__file__).resolve()), "--worker", leg,
+                str(out), *args], f"ddp ({leg}) on {nproc} ranks", env=env)
+    files = [out / f"rank{r}.pt" for r in range(nproc)]
+    check(all(f.is_file() for f in files), f"ddp ({leg}): every rank wrote its findings")
+    return [torch.load(f, weights_only=False) for f in files]
+
+
+class _AllReduceTimer:
+    """While it is entered, each ``torch.distributed.all_reduce`` is timed on
+    the host clock between two synchronisations of the card."""
+
+    def __init__(self):
+        self.seconds, self.calls = 0.0, 0
+
+    def __enter__(self):
+        real = torch.distributed.all_reduce
+
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+            return out
+
+        self._patch = mock.patch.object(torch.distributed, "all_reduce", timed)
+        self._patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._patch.stop()
+
+
+def _timed_steps(trainer, state, images, epoch: int, n: int):
+    """``n`` train steps on ``images``, each timed between synchronisations,
+    with the gloo all-reduces inside them timed apart. -> (state, metrics per
+    step, ms per step, all-reduce ms per step, B3/B4 launches per step)."""
+    history, ms, reduce_ms, dbwd = [], [], [], []
+    for _ in range(n):
+        before = _dbwd_counts()
+        with _AllReduceTimer() as timer:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = trainer.train_step(state, {"image": images}, epoch=epoch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        reduce_ms.append(timer.seconds * 1e3)
+        after = _dbwd_counts()
+        dbwd.append((after[0] - before[0], after[1] - before[1]))
+        history.append({k: float(v) for k, v in metrics.items()})
+    return state, history, ms, reduce_ms, dbwd
+
+
+def _ddp_ema_run(device) -> dict:
+    """Leg (b)'s steps on this process's rows of one global batch:
+    ``ema_vqvae.yaml`` at full width, fp32, no augmentations, DDP_STEPS
+    steps. Records the EMA counts each step applies (after the reduction
+    over the ranks) and the model's final state."""
+    cfg = load_config(str(TRAIN_CONFIG))
+    rank, world = pdist.world()
+    size = cfg.image_size
+    images = np.random.RandomState(SEED + 13).rand(DDP_BATCH, size, size, 3).astype(np.float32)
+    per = DDP_BATCH // world
+    trainer = Trainer(cfg, learning_rate=cfg.training.scaled_lr(), seed=SEED,
+                      steps_per_epoch=STEPS_PER_EPOCH, compute_dtype=torch.float32,
+                      augment=False, device=device)
+    state = trainer.init_state()
+    replicas = {"model": state.model, "usage_count": state.usage_count}
+    check_replication(replicas)
+    counts = []
+    real_reduce = quantizers.all_reduce_sum_
+
+    def spy(tensors):
+        real_reduce(tensors)
+        counts.append(tensors[0].detach().cpu().clone())
+
+    _reset_counts()
+    with mock.patch.object(quantizers, "all_reduce_sum_", spy):
+        state, history, ms, reduce_ms, _ = _timed_steps(
+            trainer, state, images[rank * per:(rank + 1) * per], 0, DDP_STEPS)
+    b1, b2 = nearest_codes.launches, nearest_codes_stats.launches
+    check_replication(replicas)
+    return {"rank": rank, "world": world, "metrics": history, "ms": ms, "reduce_ms": reduce_ms,
+            "counts": counts, "b1": b1, "b2": b2, "per": per,
+            "state": {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()}}
+
+
+def _ddp_gan_run(device) -> dict:
+    """Leg (c)'s steps: ``gumbel_vqgan.yaml`` with the GAN active, the fused
+    D backward, bf16, this rank's 16 rows: an R1 step, then a plain one,
+    the replicas checked after each."""
+    cfg = load_config(str(GAN_CONFIG))
+    rank, world = pdist.world()
+    size = cfg.image_size
+    images = np.random.RandomState(SEED + 15).rand(DDP_GAN_ROWS * world, size, size,
+                                                   3).astype(np.float32)
+    epoch = cfg.loss.adversarial.start_epoch
+    trainer = Trainer(cfg, learning_rate=cfg.training.scaled_lr(), seed=SEED,
+                      steps_per_epoch=STEPS_PER_EPOCH, compute_dtype=torch.bfloat16,
+                      device=device, fused_dbwd=True, fused_skip=True)
+    state = trainer.init_state()
+    replicas = {"model": state.model, "disc": state.disc, "usage_count": state.usage_count}
+    check_replication(replicas)
+    _reset_counts()
+    history, ms, reduce_ms, dbwd = [], [], [], []
+    for _ in range(2):
+        state, h, m, r, d = _timed_steps(
+            trainer, state, images[rank * DDP_GAN_ROWS:(rank + 1) * DDP_GAN_ROWS], epoch, 1)
+        check_replication(replicas)
+        history += h
+        ms += m
+        reduce_ms += r
+        dbwd += d
+    return {"rank": rank, "metrics": history, "ms": ms, "reduce_ms": reduce_ms, "dbwd": dbwd,
+            "b1": nearest_codes.launches, "b2": nearest_codes_stats.launches,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def _ddp_worker(leg: str, out: Path, argv: list) -> None:
+    """One rank of a ddp leg, started by torchrun (leg (a)'s run without a
+    group: alone). TF32 off. Leg ``train`` (a) runs the train CLI with
+    cuDNN's deterministic algorithms, so that two runs can agree bit for
+    bit; the others join a gloo group on card 0 (two ranks share the one
+    card, which NCCL refuses) after checking gloo's all-reduce of a CUDA
+    tensor. Writes ``out/rank<r>.pt``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if leg == "train":
+        torch.backends.cudnn.deterministic = True
+        seen = {}
+        real_run = loop.run_training
+
+        def run_training(*args, **kwargs):
+            seen["world"] = pdist.world()
+            seen["backend"] = (torch.distributed.get_backend()
+                               if torch.distributed.is_initialized() else None)
+            return real_run(*args, **kwargs)
+
+        _reset_counts()
+        with mock.patch.object(loop, "run_training", run_training), _StepSpy() as spy:
+            cli_train.main(argv)
+        torch.cuda.synchronize()
+        torch.save({**seen, "b1": nearest_codes.launches, "b2": nearest_codes_stats.launches,
+                    "ms": [t for t, _, _ in spy.steps]}, out / "rank0.pt")
+        return
+    pdist.init_distributed("cuda", backend="gloo", local_rank=0)
+    try:
+        rank, world = pdist.world()
+        probe = torch.full((4,), float(rank + 1), device=pdist.default_device())
+        torch.distributed.all_reduce(probe)
+        check(bool((probe == world * (world + 1) / 2).all()),
+              "gloo's all_reduce of a CUDA tensor sums over the ranks")
+        if leg == "ema":
+            found = _ddp_ema_run(pdist.default_device())
+        elif leg == "gan":
+            found = _ddp_gan_run(pdist.default_device())
+        elif leg == "eval":
+            calls = []
+            real_eval = loop.Trainer.eval_step
+
+            def eval_step(*args, **kwargs):
+                calls.append(1)
+                return real_eval(*args, **kwargs)
+
+            _reset_counts()
+            with mock.patch.object(loop.Trainer, "eval_step", eval_step):
+                results = cli_evaluate.main(argv)
+            found = {"rank": rank, "results": results, "batches": len(calls),
+                     "b1": nearest_codes.launches}
+        else:
+            raise ValueError(f"unknown ddp leg {leg!r}")
+        torch.save({**found, "backend": torch.distributed.get_backend()},
+                   out / f"rank{rank}.pt")
+    finally:
+        pdist.shutdown()
+
+
+def _same_payload(a, b) -> bool:
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.dtype == b.dtype and torch.equal(a, b)
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(_same_payload(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (isinstance(b, (list, tuple)) and len(a) == len(b)
+                and all(_same_payload(x, y) for x, y in zip(a, b)))
+    return a == b
+
+
+def _ddp_leg_nccl(tmp: Path, card: str) -> dict:
+    """Leg (a): the train CLI under torchrun, world 1 on NCCL, against the
+    same run without a group: ema_vqvae.yaml at full width, fp32, TF32 off,
+    cumulative_bs 32, one epoch of 4 steps and its validation."""
+    params = _yaml(tmp / "ema_ddp.yaml", TRAIN_CONFIG, lambda raw: raw["training"].update(
+        cumulative_bs=DDP_BATCH, grad_accum_steps=1))
+    args = ["--params_file", params, "--dataloader", "packed", "--dataset_path",
+            str(tmp / "ddp_data"), "--save_path", str(tmp / "ddp_ckpt"), "--seed", str(SEED),
+            "--workers", "4", "--precision", "fp32", "--max_epochs", "1"]
+    t0 = time.perf_counter()
+    (nccl,) = _torchrun(1, "train", tmp / "ddp_a_nccl", *args, "--run_name", "nccl")
+    t_nccl = time.perf_counter() - t0
+    (tmp / "ddp_a_plain").mkdir()
+    t0 = time.perf_counter()
+    _run_quiet([sys.executable, str(Path(__file__).resolve()), "--worker", "train",
+                str(tmp / "ddp_a_plain"), *args, "--run_name", "plain"],
+               "ddp (a) without a group")
+    t_plain = time.perf_counter() - t0
+    plain = torch.load(tmp / "ddp_a_plain" / "rank0.pt", weights_only=False)
+    check(nccl["world"] == (0, 1) and nccl["backend"] == "nccl",
+          f"ddp (a): torchrun's world of 1 on NCCL ({nccl['world']}, {nccl['backend']})")
+    check(plain["world"] == (0, 1) and plain["backend"] is None, "ddp (a): no group alone")
+    runs = tmp / "ddp_ckpt"
+    logged = [[{k: v for k, v in r.items() if k not in UNTIMED_KEYS}
+               for r in _records(runs / name)] for name in ("nccl", "plain")]
+    check(len(logged[0]) > 0 and logged[0] == logged[1],
+          "ddp (a): every logged value of the NCCL world-1 run equals the run without a group")
+    states = [torch.load(runs / name / "last" / "state.pt", map_location="cpu",
+                         weights_only=True) for name in ("nccl", "plain")]
+    same_bytes = ((runs / "nccl" / "last" / "state.pt").read_bytes()
+                  == (runs / "plain" / "last" / "state.pt").read_bytes())
+    check(_same_payload(*states), "ddp (a): the final state.pt of the two runs are bit-identical")
+    steps = len(nccl["ms"])
+    check(steps == DDP_TRAIN_IMAGES // DDP_BATCH and nccl["b2"] == plain["b2"] == steps,
+          f"ddp (a): B2 once per step ({nccl['b2']}, {plain['b2']} for {steps} steps)")
+    check(nccl["b1"] > 0 and nccl["b1"] == plain["b1"], "ddp (a): B1 in validation")
+    print(f"ddp (a) [{card}]: train CLI, ema_vqvae.yaml fp32, TF32 off, cuDNN deterministic, "
+          f"1 x {DDP_BATCH}: torchrun world 1 on NCCL vs no group: {len(logged[0])} logged "
+          f"records equal (all keys but {', '.join(UNTIMED_KEYS)}), final state.pt tensors "
+          f"equal (file bytes {'equal' if same_bytes else 'differ'}); launches B2 "
+          f"{nccl['b2']} / {plain['b2']}, B1 {nccl['b1']} / {plain['b1']}; ms per step NCCL "
+          + " ".join(f"{t:.1f}" for t in nccl["ms"]) + ", no group "
+          + " ".join(f"{t:.1f}" for t in plain["ms"])
+          + f"; process wall time {t_nccl:.1f} / {t_plain:.1f} s")
+    return {"nearest_codes": nccl["b1"] + plain["b1"],
+            "nearest_codes_stats": nccl["b2"] + plain["b2"]}
+
+
+def _share(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| over the largest |b|."""
+    return float((a.double() - b.double()).abs().max() / b.double().abs().max().clamp(min=1e-30))
+
+
+def _ddp_leg_ema(tmp: Path, card: str, device) -> dict:
+    """Leg (b): 2 gloo ranks x 16 against one process x 32 on the same
+    global batch, through the Trainer."""
+    ranks = _torchrun(2, "ema", tmp / "ddp_b")
+    one = _ddp_ema_run(device)
+    for r in ranks:
+        check(r["backend"] == "gloo" and r["world"] == 2 and r["per"] == DDP_BATCH // 2,
+              "ddp (b): two gloo ranks of 16")
+        check(r["b2"] == DDP_STEPS and r["b1"] == 0,
+              f"ddp (b): rank {r['rank']}: B2 once per step ({r['b2']}), no B1")
+        check(len(r["counts"]) == DDP_STEPS and all(
+            torch.equal(c, w) for c, w in zip(r["counts"], one["counts"])),
+            f"ddp (b): rank {r['rank']}: each step's EMA counts equal one process's")
+        check(all(math.isfinite(v) for m in r["metrics"] for v in m.values()),
+              "ddp (b): every metric finite")
+    r0, r1 = ranks
+    check(all(torch.equal(r0["state"][k], r1["state"][k]) for k in r0["state"]),
+          "ddp (b): the two ranks' final states are bitwise equal")
+    q = "quantizer."
+    check(torch.equal(r0["state"][q + "ema_count"], one["state"][q + "ema_count"]),
+          "ddp (b): ema_count equals one process's exactly")
+    params = {k: _share(v, one["state"][k]) for k, v in r0["state"].items()
+              if not k.startswith(q)}
+    lr = load_config(str(TRAIN_CONFIG)).training.scaled_lr()
+    reach = max(float((v - one["state"][k]).abs().max()) for k, v in r0["state"].items()
+                if not k.startswith(q))
+    ema_share = _share(r0["state"][q + "ema_weight"], one["state"][q + "ema_weight"])
+    cb_share = _share(r0["state"][q + "codebook.weight"], one["state"][q + "codebook.weight"])
+    loss_gap = max(abs(a["loss"] / b["loss"] - 1) for a, b in zip(r0["metrics"], one["metrics"]))
+    worst = max(params, key=params.get)
+    print(f"ddp (b) [{card}]: Trainer ema_vqvae.yaml fp32, TF32 off, {DDP_STEPS} steps, "
+          f"2 gloo ranks x {r0['per']} on one card vs 1 x {DDP_BATCH}: EMA counts equal every "
+          f"step, ema_count "
+          f"equal; ema_weight {ema_share:.3g}, codebook {cb_share:.3g} of their largest entry; "
+          f"parameters: worst {worst} {params[worst]:.3g} of its largest entry, largest "
+          f"|difference| {reach:.3g} (AdamW's reach {2 * lr * DDP_STEPS:.3g} = 2 lr x steps); "
+          f"loss relative gap {loss_gap:.3g}")
+    check(ema_share <= DDP_EMA_SHARE and cb_share <= DDP_EMA_SHARE,
+          f"ddp (b): ema_weight and codebook within {DDP_EMA_SHARE} of their largest entry")
+    check(reach <= 2 * lr * DDP_STEPS, "ddp (b): every parameter within AdamW's reach")
+    check(loss_gap <= DDP_LOSS_RTOL, f"ddp (b): losses within {DDP_LOSS_RTOL}")
+    for r in ranks:
+        steady = statistics.mean(r["ms"][1:])
+        share = sum(r["reduce_ms"][1:]) / sum(r["ms"][1:])
+        print(f"time [{card}]: ddp (b) rank {r['rank']}, 2 ranks x {r['per']} on one card, "
+              f"fp32: ms "
+              f"per step " + " ".join(f"{t:.1f}" for t in r["ms"]) + f" (gloo all-reduce "
+              + " ".join(f"{t:.1f}" for t in r["reduce_ms"]) + f"); steps 2-{DDP_STEPS}: "
+              f"{steady:.1f} ms, all-reduce share {share:.3f}")
+    print(f"time [{card}]: ddp (b) one process x {DDP_BATCH}, fp32: ms per step "
+          + " ".join(f"{t:.1f}" for t in one["ms"]))
+    return {"nearest_codes_stats": sum(r["b2"] for r in ranks)}
+
+
+def _ddp_leg_gan(tmp: Path, card: str) -> dict:
+    """Leg (c): 2 gloo ranks, gumbel_vqgan.yaml with the GAN active and the
+    fused D backward, 16 per rank, bf16: an R1 step, then a plain one."""
+    ranks = _torchrun(2, "gan", tmp / "ddp_c")
+    for r in ranks:
+        name = f"ddp (c): rank {r['rank']}"
+        r1 = [m["r1_penalty"] for m in r["metrics"]]
+        check(all(math.isfinite(v) for m in r["metrics"] for v in m.values()),
+              f"{name}: every metric finite")
+        check(r1[0] > 0 and r1[1] == 0, f"{name}: r1_penalty > 0 on step 0 only ({r1})")
+        check(all(b3 > 0 and b4 > 0 for b3, b4 in r["dbwd"]),
+              f"{name}: B3 and B4 launched on every step ({r['dbwd']})")
+        check(r["b1"] == 0 and r["b2"] == 0, f"{name}: no nearest-code kernel")
+        print(f"time [{card}]: ddp (c) rank {r['rank']}, 2 gloo ranks x {DDP_GAN_ROWS} on one "
+              f"card, gumbel_vqgan.yaml bf16, fused D backward: ms per step (R1, plain) "
+              + " ".join(f"{t:.1f}" for t in r["ms"]) + "; gloo all-reduce "
+              + " ".join(f"{t:.1f}" for t in r["reduce_ms"]) + f" (share of the plain step "
+              f"{r['reduce_ms'][1] / r['ms'][1]:.3f}); B3/B4 launches per step {r['dbwd']}; "
+              f"loss {[round(m['loss'], 5) for m in r['metrics']]}, r1_penalty "
+              f"{[round(v, 6) for v in r1]}; peak memory {r['peak_gib']:.2f} GiB")
+    check(ranks[0]["metrics"] == ranks[1]["metrics"],
+          "ddp (c): both ranks log the same (rank-averaged) metrics")
+    return {"blur_t_gate": sum(b3 for r in ranks for b3, _ in r["dbwd"]),
+            "skip_fanout_bwd": sum(b4 for r in ranks for _, b4 in r["dbwd"])}
+
+
+def _ddp_leg_eval(tmp: Path, card: str) -> dict:
+    """Leg (d): the eval CLI on 2 gloo ranks against 1, on leg (a)'s
+    snapshot and the eval phase's test.pack and Inception weights, at
+    DDP_EVAL_BATCH / 2 images per rank's batch on both sides (each rank's
+    last batch padded), so that each image meets the same convolution
+    algorithms in both runs."""
+    per_batch = DDP_EVAL_BATCH // 2
+    args = ["--params_file", str(tmp / "ema_ddp.yaml"), "--dataloader", "packed",
+            "--dataset_path", str(tmp / "data"), "--seed", str(SEED), "--loading_path",
+            str(tmp / "ddp_ckpt" / "plain" / "last"), "--workers", "4"]
+    env = {"VQVAE_TPU_INCEPTION_WEIGHTS": str(tmp / "inception_fid.npz")}
+    with mock.patch.dict(os.environ, env):
+        t0 = time.perf_counter()
+        ranks = _torchrun(2, "eval", tmp / "ddp_d", *args, "--batch_size", str(DDP_EVAL_BATCH))
+        t_two = time.perf_counter() - t0
+        _reset_counts()
+        t0 = time.perf_counter()
+        want = cli_evaluate.main(args + ["--batch_size", str(per_batch)])
+        t_one = time.perf_counter() - t0
+    one_b1 = nearest_codes.launches
+    per_rank = -(-EVAL_IMAGES // 2)
+    n_batches = -(-per_rank // per_batch)
+    gaps = {}
+    for r in ranks:
+        got = r["results"]
+        check(got.keys() == want.keys() and "rfid" in got, "ddp (d): the same metrics, rFID too")
+        check(all(math.isfinite(v) for v in got.values()), "ddp (d): every metric finite")
+        for k in ("mse", "psnr", "ssim"):
+            check(abs(got[k] / want[k] - 1) <= METRIC_RTOL,
+                  f"ddp (d): {k} within {METRIC_RTOL} of one rank's")
+        check(got["used_codebook"] == want["used_codebook"]
+              and got["perplexity"] == want["perplexity"], "ddp (d): usage equal to one rank's")
+        gaps[r["rank"]] = abs(got["rfid"] / want["rfid"] - 1)
+        check(gaps[r["rank"]] <= RFID_RTOL, f"ddp (d): rFID within {RFID_RTOL} of one rank's")
+        check(r["batches"] == n_batches and r["b1"] == n_batches,
+              f"ddp (d): rank {r['rank']}: B1 once per batch ({r['b1']} for {r['batches']})")
+    print(f"ddp (d) [{card}]: eval CLI, 2 gloo ranks x {per_batch} vs 1 x {per_batch} on "
+          f"{EVAL_IMAGES} images ({n_batches} batches per rank, the last padded): one rank "
+          f"{want}; 2 ranks: {ranks[0]['results']}; rFID relative gap "
+          f"{max(gaps.values()):.3g} (limit {RFID_RTOL}); B1 per rank "
+          f"{[r['b1'] for r in ranks]}, one rank {one_b1}; wall time 2 ranks {t_two:.1f} s "
+          f"(process start included), one rank in process {t_one:.1f} s")
+    return {"nearest_codes": sum(r["b1"] for r in ranks) + one_b1}
+
+
+def _lpips_alex_leg(tmp: Path, card: str, device) -> dict:
+    """Leg (e): standard_vqvae.yaml with a ``loss:`` block without a GAN
+    (LPIPS-AlexNet, seeded random weights unless converted ones are
+    present), full width, bf16, LPIPS_ALEX_STEPS steps at batch 32."""
+    cfg = load_config(_yaml(tmp / "alex.yaml", CONFIG, lambda raw: raw.update(loss={
+        "l1_weight": 0.8, "l2_weight": 0.2, "perc_weight": 1.0})))
+    gen = torch.Generator(device=device).manual_seed(SEED + 16)
+    size = cfg.image_size
+    images = torch.rand(TRAIN_BATCH, size, size, 3, device=device, generator=gen)
+    trainer = Trainer(cfg, learning_rate=cfg.training.scaled_lr(), seed=SEED,
+                      steps_per_epoch=STEPS_PER_EPOCH, compute_dtype=torch.bfloat16,
+                      device=device)
+    check(type(trainer.losses.lpips.net).__name__ == "AlexNetFeatures",
+          "lpips-alex: a loss: block without a GAN takes LPIPS-AlexNet")
+    state = trainer.init_state()
+    _reset_counts()
+    state, history, ms, _, _ = _timed_steps(trainer, state, images, 0, LPIPS_ALEX_STEPS)
+    b1 = nearest_codes.launches
+    check(all(math.isfinite(v) for m in history for v in m.values())
+          and all(m["perc_loss"] > 0 for m in history),
+          "lpips-alex: every metric finite, perc_loss > 0")
+    check(b1 == LPIPS_ALEX_STEPS and nearest_codes_stats.launches == 0,
+          f"lpips-alex: B1 once per step ({b1})")
+    print(f"time [{card}]: ddp (e) lpips-alex, standard_vqvae.yaml + loss block, bf16, batch "
+          f"{TRAIN_BATCH}: ms per step " + " ".join(f"{t:.1f}" for t in ms) + "; loss "
+          + " ".join(f"{m['loss']:.5f}" for m in history) + "; perc_loss "
+          + " ".join(f"{m['perc_loss']:.5f}" for m in history) + f"; B1 launched {b1} times")
+    return {"nearest_codes": b1}
+
+
+def phase_ddp(card: str, device, tmp: Path) -> dict:
+    """Data parallelism on the one card: (a) the train CLI under torchrun at
+    world 1 on NCCL against no group; (b) the EMA Trainer on 2 gloo ranks
+    against one process; (c) the GAN on 2 gloo ranks; (d) the eval CLI on 2
+    gloo ranks against 1; (e) LPIPS-AlexNet training in process. Needs the
+    eval phase's test.pack and Inception weights under ``tmp``. -> this
+    phase's launches per kernel (every rank's)."""
+    torch.cuda.empty_cache()   # the ranks are other processes on this card
+    size = load_config(str(TRAIN_CONFIG)).image_size
+    _write_packs(tmp / "ddp_data", DDP_TRAIN_IMAGES, CLI_VAL_IMAGES, size, SEED + 14)
+    launches = collections.Counter()
+    for leg, fn in (("a", lambda: _ddp_leg_nccl(tmp, card)),
+                    ("b", lambda: _ddp_leg_ema(tmp, card, device)),
+                    ("c", lambda: _ddp_leg_gan(tmp, card)),
+                    ("d", lambda: _ddp_leg_eval(tmp, card)),
+                    ("e", lambda: _lpips_alex_leg(tmp, card, device))):
+        t0 = time.perf_counter()
+        found = fn()
+        launches.update(found)
+        torch.cuda.empty_cache()
+        print(f"time [{card}]: ddp ({leg}) took {time.perf_counter() - t0:.1f} s; launches "
+              f"{dict(found)}")
+    return dict(launches)
+
+
 def _record(name, source, replaces, launches, max_abs_err, shape, t) -> dict:
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": max_abs_err, "ms": t["kernel"],
@@ -1685,6 +2176,9 @@ def _scan_bound(t) -> dict:
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is visible; this script runs only on a GPU")
+    if sys.argv[1:2] == ["--worker"]:   # one rank of a ddp leg (phase_ddp starts it)
+        _ddp_worker(sys.argv[2], Path(sys.argv[3]), sys.argv[4:])
+        return
     device = torch.device("cuda", 0)
     t0 = time.perf_counter()
     card = phase_device()
@@ -1715,11 +2209,16 @@ def main() -> None:
         b1_eval = sum(evals.values())
         print(f"time [{card}]: eval: the phase took {time.perf_counter() - t_eval:.1f} s; "
               f"nearest_codes launches {evals}, {b1_eval} in all")
+        t_ddp = time.perf_counter()
+        ddp = phase_ddp(card, device, tmp)
+        print(f"time [{card}]: ddp: the phase took {time.perf_counter() - t_ddp:.1f} s; "
+              f"launches, every rank's {ddp}")
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [
         # launches: the tokenizer path's, the training path's, the train
         # CLI's (cli_launches: the last alone, counted from 0 for each of its
-        # legs) and the eval and token-export CLIs' (eval_launches); max_abs_err:
+        # legs), the eval and token-export CLIs' (eval_launches) and the ddp
+        # phase's, every rank's (ddp_launches); max_abs_err:
         # the largest float64 score gap between the kernel's and the plain
         # version's pick over every compared row (0.0 where all agree)
         # bound_ms: 3 TF32 passes x 2MND on the tensor cores (bound_ops; the
@@ -1727,26 +2226,34 @@ def main() -> None:
         # time (profiler), ms: CUDA events around the wrapper
         _record("nearest_codes", "vqvae_tpu_torch/csrc/nearest_codes.cu",
                 "vqvae_tpu/ops/vq_pallas.py:141",
-                b1_tokenizer + b1_train + cli["nearest_codes"] + b1_eval,
+                b1_tokenizer + b1_train + cli["nearest_codes"] + b1_eval
+                + ddp.get("nearest_codes", 0),
                 max(kernel_gap, slice_gap), (8192, 1024, 256), b1) | _scan_bound(b1)
-        | {"cli_launches": cli["nearest_codes"], "eval_launches": b1_eval},
+        | {"cli_launches": cli["nearest_codes"], "eval_launches": b1_eval,
+           "ddp_launches": ddp.get("nearest_codes", 0)},
         # max_abs_err: the largest |dw - dw_plain| over the compared shapes
         _record("nearest_codes_stats", "vqvae_tpu_torch/csrc/nearest_codes_stats.cu",
-                "vqvae_tpu/ops/vq_pallas.py:89", b2_train + cli["nearest_codes_stats"], stats_err,
-                STATS_SHAPES[0], b2) | _scan_bound(b2)
-        | {"cli_launches": cli["nearest_codes_stats"]},
+                "vqvae_tpu/ops/vq_pallas.py:89",
+                b2_train + cli["nearest_codes_stats"] + ddp.get("nearest_codes_stats", 0),
+                stats_err, STATS_SHAPES[0], b2) | _scan_bound(b2)
+        | {"cli_launches": cli["nearest_codes_stats"],
+           "ddp_launches": ddp.get("nearest_codes_stats", 0)},
         # launches: the GAN path's 8 train steps and the CLI's leg (c); max_abs_err: the largest
         # |kernel - plain| over every compared shape, fp32 and bf16 (bf16 is
         # one bf16 ulp); times at the first block's shape in bf16, the
         # training compute dtype
         _record("blur_t_gate", "vqvae_tpu_torch/csrc/fused_dbwd.cu",
-                "vqvae_tpu/ops/fused_dbwd.py:220", b3_gan + cli["blur_t_gate"], b3_err, b256,
+                "vqvae_tpu/ops/fused_dbwd.py:220",
+                b3_gan + cli["blur_t_gate"] + ddp.get("blur_t_gate", 0), b3_err, b256,
                 dbwd[("B3", torch.bfloat16, b256)])
-        | {"dtype": "bfloat16", "cli_launches": cli["blur_t_gate"]},
+        | {"dtype": "bfloat16", "cli_launches": cli["blur_t_gate"],
+           "ddp_launches": ddp.get("blur_t_gate", 0)},
         _record("skip_fanout_bwd", "vqvae_tpu_torch/csrc/fused_dbwd.cu",
-                "vqvae_tpu/ops/fused_dbwd.py:386", b4_gan + cli["skip_fanout_bwd"], b4_err, b256,
+                "vqvae_tpu/ops/fused_dbwd.py:386",
+                b4_gan + cli["skip_fanout_bwd"] + ddp.get("skip_fanout_bwd", 0), b4_err, b256,
                 dbwd[("B4", torch.bfloat16, b256)])
-        | {"dtype": "bfloat16", "cli_launches": cli["skip_fanout_bwd"]},
+        | {"dtype": "bfloat16", "cli_launches": cli["skip_fanout_bwd"],
+           "ddp_launches": ddp.get("skip_fanout_bwd", 0)},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -36,7 +36,11 @@ assert {"vqvae_tpu_torch.cli.train", "vqvae_tpu_torch.cli.create_packed_dataset"
         "vqvae_tpu_torch.cli.evaluate", "vqvae_tpu_torch.cli.tokenize_dataset",
         "vqvae_tpu_torch.eval.metrics", "vqvae_tpu_torch.eval.inception",
         "vqvae_tpu_torch.eval.fid", "vqvae_tpu_torch.train.loop",
-        "vqvae_tpu_torch.data.dataset"} <= set(names)
+        "vqvae_tpu_torch.data.dataset", "vqvae_tpu_torch.parallel",
+        "vqvae_tpu_torch.parallel.dist", "vqvae_tpu_torch.utils.introspect"} <= set(names)
+from vqvae_tpu_torch.models.lpips import LPIPS
+for net in ("alex", "squeeze"):
+    LPIPS(net, device="cpu")
 loaded = sorted(m for m in ("vqvae_tpu", "jax", "flax", "optax", "orbax", "evaluate", "tools",
                             "torchvision") if m in sys.modules)
 print(len(names), loaded)
@@ -48,7 +52,7 @@ def test_import_loads_no_jax():
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n_modules, loaded = out.stdout.split(maxsplit=1)
-    assert int(n_modules) >= 44
+    assert int(n_modules) >= 47
     assert loaded.strip() == "[]"
 
 
@@ -125,6 +129,44 @@ def test_entry_points_ask_for_the_card_by_default(monkeypatch, tmp_path):
     with pytest.raises(Asked):
         trainer.init_state()
     assert [torch.device(d) for d in asked] == [torch.device("cuda")]
+
+
+def test_trainer_under_a_group_asks_for_its_local_rank(monkeypatch, tmp_path):
+    """Under a process group (here gloo, one rank, torchrun's environment
+    with ``LOCAL_RANK`` 3) the Trainer's default device, its state and the
+    CLIs' card are ``cuda:3``; the group's end restores plain ``cuda``."""
+    from vqvae_tpu_torch import load_config
+    from vqvae_tpu_torch.models.vqvae import VQVAE
+    from vqvae_tpu_torch.parallel import dist
+    from vqvae_tpu_torch.train.loop import Trainer
+
+    class Asked(Exception):
+        pass
+
+    asked = []
+
+    def record_from_config(cfg, dtype=torch.float32, device="cuda", generator=None):
+        asked.append(device)
+        raise Asked
+
+    cfg = load_config(str(ROOT / "example_confs" / "ema_vqvae.yaml"))
+    for name, value in (("RANK", "0"), ("WORLD_SIZE", "1"), ("LOCAL_RANK", "3")):
+        monkeypatch.setenv(name, value)
+    assert dist.init_distributed("cpu", init_method=f"file://{tmp_path}/store") == (0, 1)
+    try:
+        assert torch.distributed.get_backend() == "gloo"
+        assert dist.default_device() == torch.device("cuda", 3)
+        trainer = Trainer(cfg, learning_rate=1e-4, seed=0, steps_per_epoch=10)
+        assert trainer.device == torch.device("cuda", 3)
+        monkeypatch.setattr(VQVAE, "from_config", record_from_config)
+        with pytest.raises(Asked):
+            trainer.init_state()
+        assert [torch.device(d) for d in asked] == [torch.device("cuda", 3)]
+        assert Trainer(cfg, learning_rate=1e-4, seed=0, steps_per_epoch=10,
+                       device="cpu").device == torch.device("cpu")
+    finally:
+        dist.shutdown()
+    assert dist.default_device() == torch.device("cuda") and dist.world() == (0, 1)
 
 
 def test_training_entry_points_ask_for_the_card_by_default(monkeypatch, tmp_path):

@@ -107,5 +107,9 @@ def test_init_lpips_reads_the_npz_or_warns(pair, tmp_path, monkeypatch):
 
 
 def test_unported_nets_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tl.LPIPS("alex", device="cpu")
+    """Every net of the JAX package is ported; an unknown one raises, naming
+    the three."""
+    with pytest.raises(NotImplementedError, match="vgg | alex | squeeze"):
+        tl.LPIPS("resnet", device="cpu")
+    for net in ("alex", "squeeze"):
+        assert tl.LPIPS(net, device="cpu").net.__class__.__name__.lower().startswith(net)

@@ -164,13 +164,17 @@ def test_train_preprocess_needs_a_generator():
         tpre.preprocess_batch(torch.zeros(1, 4, 4, 3), training=True)
 
 
-@pytest.mark.parametrize("change,match", [
-    ({"loss": {"l1_weight": 0.8, "l2_weight": 0.2, "perc_weight": 1.0}}, "loss.*ROADMAP"),
+@pytest.mark.parametrize("change,net", [
+    ({"loss": {"l1_weight": 0.8, "l2_weight": 0.2, "perc_weight": 1.0}}, "alex"),
 ])
-def test_trainer_refuses_what_it_does_not_carry(change, match):
+def test_trainer_refuses_what_it_does_not_carry(change, net, monkeypatch, tmp_path):
+    """The Trainer refuses no config now: a ``loss:`` block without a GAN,
+    refused until LPIPS-AlexNet was ported, takes it (as the JAX Trainer)."""
+    monkeypatch.setenv("VQVAE_TPU_LPIPS_WEIGHTS_DIR", str(tmp_path))   # no .npz: random init
     cfg = parse_config({**RAW, **change})
-    with pytest.raises(NotImplementedError, match=match):
-        Trainer(cfg, learning_rate=1e-3, seed=0, steps_per_epoch=10, device="cpu")
+    with pytest.warns(UserWarning, match="LPIPS"):
+        trainer = Trainer(cfg, learning_rate=1e-3, seed=0, steps_per_epoch=10, device="cpu")
+    assert type(trainer.losses.lpips.net).__name__ == {"alex": "AlexNetFeatures"}[net]
 
 
 def test_trainer_state_and_usage():

@@ -5,8 +5,9 @@ all four quantizers and its tokenizer API (``VQVAE.get_tokens`` /
 ``reconstruct`` / ``reconstruct_from_tokens``), the training step and loop
 with the LPIPS + StyleGAN2 loss stack (``train.loop``), eval (``eval``:
 L2 / PSNR / SSIM / rFID) and the CLIs (``cli``: train, evaluate,
-tokenize_dataset, create_packed_dataset), with the TPU kernels written for
-``sm_90a`` (``csrc/``). The package imports ``torch`` and never ``jax`` nor
+tokenize_dataset, create_packed_dataset; train and evaluate also under
+torchrun, one process per card, ``parallel``), with the TPU kernels written
+for ``sm_90a`` (``csrc/``). The package imports ``torch`` and never ``jax`` nor
 ``vqvae_tpu``; configs are parsed by its own ``config`` module.
 """
 

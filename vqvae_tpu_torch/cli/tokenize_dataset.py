@@ -19,7 +19,8 @@ does (vector_quantizers.py:265-274), from a ``torch.Generator`` seeded by
 ``--seed`` anew for each split; that stream cannot equal ``jax.random``'s,
 so sampled tokens differ from the JAX CLI's (deterministic ones agree).
 ``--spatial`` (height-sharded inference over several devices) is
-ROADMAP.md queue A, item 11. ``main(argv)`` runs in process and returns the
+ROADMAP.md queue A, item 11. One process on one card, as the JAX tool: it
+starts no process group. ``main(argv)`` runs in process and returns the
 manifest.
 """
 

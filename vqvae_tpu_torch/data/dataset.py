@@ -24,7 +24,7 @@ import pathlib
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterator
+from typing import Iterator, Optional
 
 import numpy as np
 
@@ -220,12 +220,21 @@ class Loader:
 
 def get_loaders(loader_type: str, dirpath: str, image_size: int,
                 batch_size: int, workers: int, seed: int,
-                mode: str = "train", shard_rank: int = 0, shard_count: int = 1):
+                mode: str = "train", shard_rank: Optional[int] = None,
+                shard_count: Optional[int] = None):
     """Loader factory (reference get_datamodule, common_utils.py:38-103):
     'standard' = image folders train/ validation/ test/; 'packed' (or
     'ffcv') = packed files train.pack / validation.pack / test.pack. This
-    shard iterates samples ``shard_rank::shard_count``."""
+    shard iterates samples ``shard_rank::shard_count``, by default this
+    rank's shard of the process group (the whole set without one; JAX's
+    default is ``process_index`` / ``process_count``). ``batch_size`` is the
+    shard's batch."""
     import os
+
+    from vqvae_tpu_torch.parallel.dist import world
+    rank, size = world()
+    shard_rank = rank if shard_rank is None else shard_rank
+    shard_count = size if shard_count is None else shard_count
     if not os.path.isdir(dirpath):
         raise FileNotFoundError(f"dataset path not found: {dirpath}")
     dirpath = dirpath if dirpath.endswith("/") else dirpath + "/"

@@ -11,7 +11,10 @@ InceptionV3). The feature extractor is pluggable:
   implementations only with the standard pt_inception weights), else None;
 - any callable ``(uint8 NHWC images) -> (B, D) host features`` works.
 
-The statistics stay on the host in float64 numpy. The Frechet distance uses
+The statistics stay on the host in float64 numpy; under a process group
+``reduce_across_hosts`` sums them over the ranks (NCCL reduces only CUDA
+tensors, so they travel to the rank's card for the sum and come back). The
+Frechet distance uses
 the eigen-decomposition form ``tr(S1) + tr(S2) - 2 tr((S1^(1/2) S2
 S1^(1/2))^(1/2))``, the math of scipy's ``sqrtm`` route without scipy.
 """
@@ -24,6 +27,9 @@ from pathlib import Path
 from typing import Callable, Optional
 
 import numpy as np
+import torch
+
+from vqvae_tpu_torch.parallel.dist import all_reduce_sum_, reduce_device, world
 
 
 class FIDAccumulator:
@@ -42,6 +48,19 @@ class FIDAccumulator:
         self.n += features.shape[0]
         self.sum += features.sum(axis=0)
         self.outer += features.T @ features
+
+    def reduce_across_hosts(self) -> None:
+        """Sum ``n``, the sums and the second moments over the ranks, in
+        place (JAX ``eval/fid.py:46``); a no-op at world size 1."""
+        if world()[1] == 1:
+            return
+        device = reduce_device()
+        parts = [torch.tensor([float(self.n)], dtype=torch.float64, device=device),
+                 torch.from_numpy(self.sum).to(device), torch.from_numpy(self.outer).to(device)]
+        all_reduce_sum_(parts)
+        self.n = int(parts[0].item())
+        self.sum = parts[1].cpu().numpy()
+        self.outer = parts[2].cpu().numpy()
 
     def stats(self):
         assert self.n > 1, "need at least 2 samples for covariance"
@@ -78,6 +97,10 @@ class FID:
     def update(self, images_uint8, real: bool, mask: Optional[np.ndarray] = None):
         feats = np.asarray(self.extractor(images_uint8))
         (self.real if real else self.fake).update(feats, mask)
+
+    def reduce_across_hosts(self) -> None:
+        self.real.reduce_across_hosts()
+        self.fake.reduce_across_hosts()
 
     def compute(self) -> float:
         mu_r, cov_r = self.real.stats()

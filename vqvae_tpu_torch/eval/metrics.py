@@ -13,7 +13,9 @@ Images are NHWC floats in [0, 1], as in the JAX package. The blur is
 separable, valid-padded and depthwise (``F.conv2d(groups=C)``) in fp32 with
 TF32 off. The accumulators are streaming masked sums, so the zero-padded
 rows of a partial final batch count for nothing; they stay on the images'
-device (float64) and are fetched once, by ``compute()``.
+device (float64) and are fetched once, by ``compute()``. Under a process
+group each rank streams its shard and ``reduce_across_hosts`` sums the
+accumulators over the ranks before ``compute()``.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from vqvae_tpu_torch.parallel.dist import all_reduce_sum_, reduce_device, world
 from vqvae_tpu_torch.utils.precision import full_fp32
 
 
@@ -94,6 +97,16 @@ class ReconMetrics:
         self._se_sum = self._se_sum + mse_s.double()[keep].sum()
         self._ssim_sum = self._ssim_sum + ssim_s.double()[keep].sum()
         self._n = self._n + keep.sum()
+
+    def reduce_across_hosts(self) -> None:
+        """Sum the accumulators over the ranks of the process group, in place
+        (JAX ``eval/metrics.py:102``); a no-op at world size 1."""
+        if world()[1] == 1:
+            return
+        sums = torch.stack([torch.as_tensor(v, dtype=torch.float64).to(reduce_device())
+                            for v in (self._se_sum, self._ssim_sum, self._n)])
+        all_reduce_sum_([sums])
+        self._se_sum, self._ssim_sum, self._n = sums[0], sums[1], int(sums[2])
 
     def compute(self) -> dict:
         n = max(int(self._n), 1)

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vqvae_tpu_torch.ops.vq import nearest_codes, nearest_codes_stats
+from vqvae_tpu_torch.parallel.dist import all_reduce_sum_
 from vqvae_tpu_torch.utils.precision import full_fp32
 
 
@@ -183,8 +184,9 @@ class EMAVectorQuantizer(nn.Module):
     tokenizer API leaves them alone in any mode. The lookup reads the codebook
     from before the update. The Laplace smoothing is normalized by the image
     count ``b``, not the latent count ``b*h*w``, a reference quirk kept for
-    training parity. Single device: the JAX package's cross-replica ``psum`` of
-    the statistics is multi-GPU work (ROADMAP.md queue A, item 8).
+    training parity. Under a process group the counts, the sums and the image
+    count are summed over the ranks before the update (once per micro-batch),
+    so every replica applies the global batch's update.
     """
 
     def __init__(self, num_embeddings: int, embedding_dim: int,
@@ -216,9 +218,14 @@ class EMAVectorQuantizer(nn.Module):
 
         if train:
             with torch.no_grad():
+                # the global batch's statistics, as every replica applies
+                # them (JAX's psum, quantizers.py:268-271); the image count
+                # is an fp32 tensor, as the JAX package's
+                batch = torch.full((), float(b), device=counts.device)
+                all_reduce_sum_([counts, dw, batch])
                 ema_count = self.ema_count * self.decay + (1 - self.decay) * counts
                 ema_count = ((ema_count + self.epsilon)
-                             / (b + self.num_embeddings * self.epsilon) * b)
+                             / (batch + self.num_embeddings * self.epsilon) * batch)
                 self.ema_weight.mul_(self.decay).add_((1 - self.decay) * dw)
                 self.ema_count.copy_(ema_count)
                 codebook.copy_(self.ema_weight / ema_count[:, None])

@@ -3,9 +3,11 @@
 ``eval_step``, ``maybe_reinit_codes``, ``reset_usage``, ``gan_active``,
 ``sync_host_step``; ``run_training``, ``run_validation``).
 
-The Trainer runs on the card unless ``device="cpu"`` is passed. With a
-``loss:`` block it builds the loss stack: LPIPS-VGG (elided where
-``perc_weight == 0`` and lambda is not adaptive), the StyleGAN2
+The Trainer runs on the card unless ``device="cpu"`` is passed: under a
+process group, this rank's ``cuda:LOCAL_RANK`` (``parallel/dist.py``). With a
+``loss:`` block it builds the loss stack: LPIPS (VGG with the GAN, AlexNet
+without it, as the JAX Trainer picks; elided where ``perc_weight == 0`` and
+lambda is not adaptive), the StyleGAN2
 discriminator and its optimizer, whose LR schedule is shifted by the
 ``start_epoch * steps_per_epoch`` steps D sits out. A host step counter
 picks the R1 steps (``host_step % r1_reg_every == 0``, counted in optimizer
@@ -20,10 +22,16 @@ as there. ``native_lr`` is the native LR twin whose value is logged.
 too), reconstruction panels at batch 2, epoch means of the step metrics
 (summed on the device, fetched once per epoch), dead-code reinit every
 ``reinit_every_n_epochs``, checkpoints every N epochs and ``last``. The
-remat gate and the device mesh of the JAX loop are not ported.
+remat gate of the JAX loop is not ported.
 
-Not ported yet, raising where a config asks for it (ROADMAP.md queue A):
-LPIPS-AlexNet (a ``loss:`` block without a GAN and ``perc_weight > 0``).
+Data parallel: every rank builds the same initial state from the seed (the
+replicas are checked bitwise after init and after every restore), draws its
+augmentations and gumbel noise from its own stream (``rank_seed``; rank 0
+keeps the one-process streams), reads its own rows (the loader batch is the
+per-rank batch), and takes the step's reductions (``train/steps.py``); the
+reinit draws from the same stream on every rank and reads the usage counts
+summed over the ranks, so every replica replaces the same rows. Only rank 0
+logs, draws panels (from its own rows) and writes checkpoints.
 """
 
 from __future__ import annotations
@@ -41,20 +49,15 @@ from vqvae_tpu_torch.models.lpips import init_lpips
 from vqvae_tpu_torch.models.quantizers import (get_codebook_usage, pick_reinit,
                                                reinit_unused_codes, reinit_unused_codes_ema)
 from vqvae_tpu_torch.models.vqvae import VQVAE
+from vqvae_tpu_torch.parallel.dist import default_device, rank_seed, world
 from vqvae_tpu_torch.train import steps
 from vqvae_tpu_torch.train.native_schedulers import build_native_lr_scheduler
 from vqvae_tpu_torch.train.optim import make_ae_optimizer, make_disc_optimizer
 from vqvae_tpu_torch.train.schedules import build_gumbel_schedules, build_lr_schedule
 from vqvae_tpu_torch.train.state import TrainState
 from vqvae_tpu_torch.utils.checkpoint import CheckpointManager
+from vqvae_tpu_torch.utils.introspect import check_replication
 from vqvae_tpu_torch.utils.logging import MetricLogger, make_recon_panel
-
-
-def _refuse_unported(cfg: Config) -> None:
-    if cfg.loss is not None and not cfg.use_adversarial and cfg.loss.perc_weight != 0.0:
-        raise NotImplementedError(
-            "a loss: block without adversarial_params takes LPIPS-AlexNet, which is not "
-            "ported yet (ROADMAP.md queue A, item 9)")
 
 
 @dataclass
@@ -67,6 +70,8 @@ class Trainer:
     # train-time augmentations (the reference's always-on behaviour); False =
     # normalize only, for the parity tests against the JAX Trainer
     augment: bool = True
+    # "cuda" without an index is this rank's card: cuda:LOCAL_RANK under a
+    # process group
     device: Union[str, torch.device] = "cuda"
     # LPIPS weights as a JAX-layout tree (the JAX Trainer's lpips_params);
     # None = the converted .npz if present, else seeded random weights
@@ -79,8 +84,10 @@ class Trainer:
     def __post_init__(self):
         cfg = self.cfg
         t = cfg.training
-        _refuse_unported(cfg)
         self.device = torch.device(self.device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = default_device()
+        self.rank = world()[0]
         self.accum = int(t.grad_accum_steps)
         self.lr_sched = build_lr_schedule(self.learning_rate, self.steps_per_epoch,
                                           t.warmup_epochs, t.decay_epochs)
@@ -101,8 +108,9 @@ class Trainer:
             # not under use_adaptive, whose lambda takes the unweighted LPIPS
             if cfg.loss.perc_weight != 0.0 or (cfg.use_adversarial
                                                and cfg.loss.adversarial.use_adaptive):
-                lpips = init_lpips("vgg", seed=self.seed, dtype=self.compute_dtype,
-                                   device=self.device, params=self.lpips_params_override)
+                lpips = init_lpips("vgg" if cfg.use_adversarial else "alex", seed=self.seed,
+                                   dtype=self.compute_dtype, device=self.device,
+                                   params=self.lpips_params_override)
             self.losses = steps.LossStack(cfg.loss.l1_weight, cfg.loss.l2_weight,
                                           cfg.loss.perc_weight, lpips, cfg.loss.adversarial)
             if cfg.use_adversarial:
@@ -111,9 +119,9 @@ class Trainer:
 
     def init_state(self) -> TrainState:
         """A fresh state: the model's weights drawn from ``seed`` and the
-        discriminator's from ``seed + 1`` (the same on every device), fresh
+        discriminator's from ``seed + 1`` (the same on every rank), fresh
         optimizers, the augmentation generator and the gumbel noise generator
-        seeded from ``seed``, and zero usage."""
+        seeded from ``rank_seed(seed, rank)``, and zero usage."""
         cfg = self.cfg
         t = cfg.training
         model = VQVAE.from_config(cfg, dtype=self.compute_dtype, device=self.device,
@@ -122,11 +130,12 @@ class Trainer:
         state = TrainState(
             step=0, model=model,
             optimizer=make_ae_optimizer(model, t.betas, t.eps, t.weight_decay),
-            generator=torch.Generator().manual_seed(self.seed),
+            generator=torch.Generator().manual_seed(rank_seed(self.seed, self.rank)),
             usage_count=torch.zeros(cfg.quantizer.num_embeddings, dtype=torch.int32,
                                     device=self.device))
         if cfg.quantizer.type == "gumbel":
-            state.noise_generator = torch.Generator(device=self.device).manual_seed(self.seed)
+            state.noise_generator = torch.Generator(device=self.device).manual_seed(
+                rank_seed(self.seed, self.rank))
         if cfg.use_adversarial:
             state.disc = Discriminator(cfg.image_size, dtype=self.compute_dtype,
                                        fused_dbwd=self.fused_dbwd, fused_skip=self.fused_skip,
@@ -177,8 +186,8 @@ class Trainer:
     def eval_step(self, state: TrainState, batch, epoch: int):
         """-> (metrics, usage, reconstructions); ``batch["mask"]`` (B,) bool
         marks the valid rows (all of them when absent). The gumbel noise of
-        an eval step comes from a generator seeded by (seed, step), so that
-        evaluating leaves the training noise alone."""
+        an eval step comes from a generator seeded by (seed, step, rank), so
+        that evaluating leaves the training noise alone."""
         images = self._images(batch)
         mask = batch.get("mask")
         mask = (torch.ones(images.shape[0], dtype=torch.bool, device=self.device)
@@ -187,7 +196,7 @@ class Trainer:
         generator = None
         if temp is not None:
             generator = torch.Generator(device=self.device).manual_seed(
-                (self.seed << 32) + state.step)
+                rank_seed((self.seed << 32) + state.step, self.rank))
         return steps.eval_step(state, images, mask, losses=self.losses,
                                gan=self.gan_active(epoch), temp=temp, kl_cost=kl_cost,
                                generator=generator)
@@ -198,7 +207,9 @@ class Trainer:
         epochs but epoch 0, each code unused over the epoch takes a used
         code's row, drawn from the usage distribution by a generator seeded
         from (seed, 7919 + epoch), perturbed by ``reinit_noise_scale`` (0 by
-        default). The EMA quantizer's accumulators follow its codebook."""
+        default). The EMA quantizer's accumulators follow its codebook. The
+        generator and the usage counts (summed over the ranks by every step)
+        are the same on every rank, and so are the picks."""
         every = self.cfg.quantizer.reinit_every_n_epochs
         if every is None or epoch == 0 or epoch % every != 0:
             return state
@@ -248,7 +259,8 @@ def run_training(cfg: Config, train_loader, val_loader, *, seed: int, learning_r
                  fused_skip: bool = False):
     """A whole training run (counterpart of ``vqvae_tpu/train/loop.py:357-403``)
     on ``device``; returns (the final TrainState, the Trainer). The loader
-    batch is the per-device batch: it must divide into ``grad_accum_steps``
+    batch is the per-rank batch (``cumulative_bs`` over the world size under
+    a process group): it must divide into ``grad_accum_steps``
     micro-batches, and under a GAN each micro-batch into groups of 4 (the
     D's minibatch-std)."""
     steps_per_epoch = len(train_loader)
@@ -257,7 +269,8 @@ def run_training(cfg: Config, train_loader, val_loader, *, seed: int, learning_r
     per_dev = train_loader.batch_size
     if per_dev % accum != 0:
         raise RuntimeError(
-            f"per-device batch {per_dev} must be divisible by grad_accum_steps={accum}")
+            f"per-device (per-rank) batch {per_dev} must be divisible by "
+            f"grad_accum_steps={accum}")
     if cfg.use_adversarial and (per_dev // accum) % 4 != 0:
         raise RuntimeError(
             "batch size per device (per accumulation micro-batch) must be divisible by 4! "
@@ -276,18 +289,25 @@ def run_training(cfg: Config, train_loader, val_loader, *, seed: int, learning_r
     return state, trainer
 
 
+def _replicas(state: TrainState) -> dict:
+    return {"model": state.model, "disc": state.disc, "usage_count": state.usage_count}
+
+
 def _run_epochs(trainer: Trainer, train_loader, val_loader, *, save_dir, run_name,
                 save_every_n_epochs, logger, resume_path, max_epochs, check_val_every,
                 log_recon_batch):
     state = trainer.init_state()
+    check_replication(_replicas(state))
     ckpt = CheckpointManager(save_dir, run_name, save_every_n_epochs)
     logger = logger or MetricLogger(save_dir, run_name)
     start_epoch = 0
     if resume_path is not None:
         state, start_epoch = ckpt.restore(resume_path, state)
+        check_replication(_replicas(state))
         start_epoch += 1
         trainer.sync_host_step(state)
-        print(f"[INFO] resumed from {resume_path} at epoch {start_epoch}")
+        if trainer.rank == 0:
+            print(f"[INFO] resumed from {resume_path} at epoch {start_epoch}")
 
     for epoch in range(start_epoch, max_epochs):
         train_loader.set_epoch(epoch)

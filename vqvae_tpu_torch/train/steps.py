@@ -35,8 +35,15 @@
   means, so zero-padded rows of a partial final batch count for nothing;
   with the GAN active, the per-sample G and D losses of the plain D.
 
-Single device; the JAX package's cross-replica means and sums are
-multi-GPU work (ROADMAP.md queue A, item 8).
+- Data parallel (a process group of one rank per card, ``parallel/dist.py``):
+  each rank takes its own rows through the micro-batch loop, then the
+  gradients of each model are averaged over the ranks once, before its
+  optimizer steps (JAX ``steps.py:424-432``); the step's usage is summed
+  and its metrics averaged (``g_weight`` stays each rank's own value,
+  averaged as a metric only); the D's minibatch-std groups stay inside each
+  rank's micro-batch. The eval step's masked means are global sums over
+  global counts, and ``quant_loss`` is weighted by each rank's valid rows
+  (JAX ``steps.py:471-522``). At world size 1 nothing is reduced.
 """
 
 from __future__ import annotations
@@ -52,6 +59,7 @@ from vqvae_tpu_torch.losses.losses import (discriminator_loss_half,
                                            generator_loss_per_sample, l1_loss, l2_loss)
 from vqvae_tpu_torch.models.preprocess import denormalize, preprocess_batch
 from vqvae_tpu_torch.models.quantizers import count_code_usage
+from vqvae_tpu_torch.parallel.dist import all_reduce_mean_, all_reduce_sum_
 from vqvae_tpu_torch.train.optim import set_lr
 from vqvae_tpu_torch.train.state import TrainState
 
@@ -170,18 +178,26 @@ def train_step(state: TrainState, raw_images: torch.Tensor, lr: float, augment: 
     if gan:
         set_lr(state.disc_optimizer, d_lr)
         state.disc_optimizer.zero_grad(set_to_none=True)
-    sums = None
+    sums = usage = None
     for micro in raw_images.split(b // accum):
         metrics, codes = _micro_step(state, micro, augment, image_size, losses, gan, r1,
                                      temp, kl_cost, 1.0 / accum)
         sums = metrics if sums is None else {k: sums[k] + v for k, v in metrics.items()}
-        state.usage_count += count_code_usage(codes, state.usage_count.shape[0])
+        micro_usage = count_code_usage(codes, state.usage_count.shape[0])
+        usage = micro_usage if usage is None else usage + micro_usage
+    # one reduction per step, after the micro-batch loop (JAX steps.py:424-438)
+    all_reduce_mean_([p.grad for p in state.model.parameters()])
+    if gan:
+        all_reduce_mean_([p.grad for p in state.disc.parameters()])
+    metrics = sums if accum == 1 else {k: v * (1.0 / accum) for k, v in sums.items()}
+    all_reduce_mean_(metrics.values())
+    all_reduce_sum_([usage])
+    state.usage_count += usage
     state.optimizer.step()
     if gan:
         state.disc_optimizer.step()
         state.disc_step += 1
     state.step += 1
-    metrics = sums if accum == 1 else {k: v * (1.0 / accum) for k, v in sums.items()}
     metrics["lr"] = lr
     if temp is not None:
         metrics.update(gumbel_temperature=temp, gumbel_kl=kl_cost)
@@ -201,12 +217,8 @@ def eval_step(state: TrainState, raw_images: torch.Tensor, mask: torch.Tensor,
     recon, q_loss, codes = state.model(images, train=False, mask=mask, temp=temp,
                                        kl_cost=kl_cost, generator=generator)
 
-    def masked_mean(per_sample):
-        return (per_sample * maskf).sum() / maskf.sum().clamp(min=1.0)
-
     l1_i = _per_sample_mean((images - recon).abs())
     l2_i = _per_sample_mean((images - recon) ** 2)
-    n_valid = maskf.sum()
     p_i = g_i = d_i = torch.zeros_like(l1_i)
     if losses is None:
         loss_i = q_loss + l2_i
@@ -222,13 +234,16 @@ def eval_step(state: TrainState, raw_images: torch.Tensor, mask: torch.Tensor,
             loss_i = nll_i + g_i * adv.g_weight + q_loss
         else:
             loss_i = nll_i + q_loss
-    metrics = {
-        "loss": masked_mean(loss_i), "l1_loss": masked_mean(l1_i),
-        "l2_loss": masked_mean(l2_i),
-        # the JAX step's cross-shard weighting of the masked q_loss, on one shard
-        "quant_loss": q_loss * n_valid / n_valid.clamp(min=1.0),
-        "perc_loss": masked_mean(p_i), "gen_loss": masked_mean(g_i),
-        "disc_loss": masked_mean(d_i), "n_valid": n_valid,
-    }
+    # masked sums and the valid count, summed over the ranks: the masked
+    # means are global; q_loss, a per-rank masked mean, is weighted by each
+    # rank's valid rows (JAX steps.py:498-518)
+    n_valid = maskf.sum()
+    weighted = {"loss": loss_i, "l1_loss": l1_i, "l2_loss": l2_i, "quant_loss": None,
+                "perc_loss": p_i, "gen_loss": g_i, "disc_loss": d_i}
+    sums = torch.stack([(q_loss * n_valid if v is None else (v * maskf).sum()).float()
+                        for v in weighted.values()] + [n_valid])
     usage = count_code_usage(codes, state.usage_count.shape[0], mask=mask)
+    all_reduce_sum_([sums, usage])
+    metrics = dict(zip(weighted, (sums[:-1] / sums[-1].clamp(min=1.0)).unbind()))
+    metrics["n_valid"] = sums[-1]
     return metrics, usage, denormalize(recon)

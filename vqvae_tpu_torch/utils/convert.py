@@ -151,11 +151,20 @@ def convert_discriminator_params(params: dict) -> Dict[str, torch.Tensor]:
 
 
 def convert_lpips_params(params: dict) -> Dict[str, torch.Tensor]:
-    """JAX LPIPS-VGG params (``{'net': {'conv{i}': {kernel, bias}}, 'lin{i}':
-    (C, 1)}``, the layout of the converted ``.npz``) -> port LPIPS state_dict."""
+    """JAX LPIPS params of any backbone (``{'net': {...}, 'lin{i}': (C, 1)}``,
+    the layout of the converted ``.npz``: VGG and AlexNet ``conv{i}: {kernel,
+    bias}``, SqueezeNet also ``fire{i}: {squeeze, expand1x1, expand3x3}``) ->
+    port LPIPS state_dict."""
     sd = {}
-    for name, p in params["net"].items():
-        sd.update(conv_state(p, f"net.{name}"))
+
+    def convs(tree: dict, prefix: str) -> None:
+        for name, p in tree.items():
+            if "kernel" in p:
+                sd.update(conv_state(p, f"{prefix}.{name}"))
+            else:
+                convs(p, f"{prefix}.{name}")
+
+    convs(params["net"], "net")
     for name, v in params.items():
         if name != "net":
             sd[name] = _t(v)

@@ -4,6 +4,7 @@ wandb where asked for and importable (imported only then). Replaces the
 reference's WandbLogger wiring (train.py:81-85; per-component scalars,
 model.py:277-286; reconstruction panels, model.py:442-456): a panel is a PNG
 (PIL, imported only to write it) or, without PIL, a ``.npy`` of the array.
+Under a process group only rank 0 writes, unless told otherwise.
 """
 
 from __future__ import annotations
@@ -15,13 +16,15 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from vqvae_tpu_torch.parallel.dist import world
+
 
 class MetricLogger:
     def __init__(self, log_dir: str, run_name: str, use_wandb: bool = False,
                  wandb_project: str = "vqvae", wandb_id: Optional[str] = None,
-                 resume: bool = False, is_main_process: bool = True):
+                 resume: bool = False, is_main_process: Optional[bool] = None):
         self.dir = Path(log_dir) / run_name
-        self.is_main = is_main_process
+        self.is_main = world()[0] == 0 if is_main_process is None else is_main_process
         self._wandb = None
         if not self.is_main:
             return
