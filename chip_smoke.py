@@ -60,7 +60,7 @@ exit and no result line:
    theirs (and the kernels' device time), with each shape's launches per
    GAN step and, per step, the sum of launches x (time - bound); the GAN
    step, R1 and not, fused and plain, in bf16 and fp32 (3 windows after a
-   warm-up for a non-R1 step, 1 window for an R1 step);
+   warm-up for a non-R1 step, in turns; one window each for an R1 step);
 10. cli: the port's train CLI (``vqvae_tpu_torch.cli.train.main``) in
    process, bf16 (its default), torch's default TF32 settings, on seeded
    uint8 256^2 images written with ``write_packed`` (``--dataloader
@@ -135,6 +135,25 @@ exit and no result line:
    3 steps at batch 32 in process: finite, ``perc_loss`` > 0, B1 once per
    step. Times: ms per step of each leg and rank, the gloo all-reduce's
    share of the step.
+13. serve: (a) seeded full-width weights of ``standard_vqvae.yaml`` and
+   ``gumbel_vqgan.yaml`` written as the reference's Lightning checkpoint
+   (with a ``criterion.*`` entry), through ``cli.import_torch_checkpoint``
+   and ``restore_for_eval``: the weights equal, ``get_tokens`` at batch 32
+   equal to the source model's on every row, B1 twice for the standard
+   model and never for gumbel. (b) two gloo ranks on the one card, each
+   holding half the rows of 2 x 2048^2 images (``parallel/spatial.py``),
+   ``standard_vqvae.yaml`` at full width, fp32, TF32 off, against one
+   process on the whole images: codes equal but on rows of B1's near-tie
+   list (none outside the float64 near-tie rule), each rank's
+   ``reconstruct`` slab within ``SPATIAL_ATOL`` of one process's rows, the
+   per-rank and single-process peak memory and times, B1 once per call per
+   rank. (c) the token-export CLI with ``--spatial`` under torchrun at world
+   1 on NCCL on (a)'s imported snapshot, token for token the run without
+   it. (d) ``probe_max_resolution`` in fp32 from 1024^2 until a call fails
+   (cap 8192^2); B1's codes in its call at the largest resolution that fit
+   against the plain version on the same latents, then B1 timed on them. (e)
+   ``bench_infer``'s line, bf16 and fp32. (f) ``misc_ops.grid_sample``'s
+   second-order gradients on the card against the CPU's, float64.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a visible CUDA device it exits
@@ -163,8 +182,9 @@ import numpy as np
 import torch
 import yaml
 
-from vqvae_tpu_torch import load_config, profile_tokenizer
+from vqvae_tpu_torch import bench_infer, load_config, probe_max_resolution, profile_tokenizer
 from vqvae_tpu_torch.cli import evaluate as cli_evaluate
+from vqvae_tpu_torch.cli import import_torch_checkpoint as cli_import_torch
 from vqvae_tpu_torch.cli import tokenize_dataset as cli_tokenize
 from vqvae_tpu_torch.cli import train as cli_train
 from vqvae_tpu_torch.data.packed import PackedDataset, write_packed
@@ -173,15 +193,17 @@ from vqvae_tpu_torch.eval.inception import make_pool3_extractor
 from vqvae_tpu_torch.models import quantizers
 from vqvae_tpu_torch.models.preprocess import preprocess_batch
 from vqvae_tpu_torch.models.vqvae import VQVAE
-from vqvae_tpu_torch.ops import _build, fused_dbwd, fused_dbwd_cuda, vq_cuda
+from vqvae_tpu_torch.ops import _build, fused_dbwd, fused_dbwd_cuda, misc_ops, vq_cuda
 from vqvae_tpu_torch.ops.upfirdn2d import upfirdn2d
 from vqvae_tpu_torch.ops.vq import (code_mismatches, nearest_codes, nearest_codes_reference,
                                     nearest_codes_stats, nearest_codes_stats_reference)
 from vqvae_tpu_torch.parallel import dist as pdist
+from vqvae_tpu_torch.parallel import spatial
+from vqvae_tpu_torch.parallel.spatial import make_spatial_apply, shard_rows
 from vqvae_tpu_torch.train import loop
 from vqvae_tpu_torch.train.loop import Trainer
 from vqvae_tpu_torch.train.native_schedulers import build_native_lr_scheduler
-from vqvae_tpu_torch.utils.checkpoint import CheckpointManager
+from vqvae_tpu_torch.utils.checkpoint import CheckpointManager, restore_for_eval
 from vqvae_tpu_torch.utils.convert import random_inception_npz
 from vqvae_tpu_torch.utils.introspect import check_replication
 
@@ -241,6 +263,14 @@ RFID_RTOL = 1e-3            # ddp (d): rFID on 2 ranks vs 1 (64 images, 2048-d f
 LPIPS_ALEX_STEPS = 3        # ddp (e)
 DDP_TIMEOUT = 600           # s, per process the ddp phase starts
 UNTIMED_KEYS = ("time", "train/images_per_sec")   # ddp (a): what two runs cannot share
+SERVE_BATCH = 32            # serve (a): get_tokens of the imported models; (c): the CLI's batch
+SERVE_IMAGES = 64           # serve (c)
+SPATIAL_SIZE = 2048         # serve (b): images of 2048^2 ...
+SPATIAL_BATCH = 2           # ... two of them, split by height over 2 ranks
+SPATIAL_ATOL = 1e-4         # serve (b): reconstruct slabs vs one process, on [0, 1] images
+PROBE_START, PROBE_MAX = 1024, 8192   # serve (d): the resolutions the probe tries
+BENCH_FP32_STEPS = 4        # serve (e): calls per window of the fp32 bench_infer run
+GRID_SHARE = 1e-10          # serve (f): float64 card vs CPU, share of the largest entry
 # published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): fp32 on the
 # CUDA cores, TF32 on the tensor cores (dense), and device memory
 FP32_FLOPS = 67e12
@@ -678,13 +708,20 @@ def _short(name: str) -> str:
     return found.group(0) if found else name
 
 
-def near_ties(x, cb) -> int:
-    """How many rows of (x, cb) B1's merge puts on its fp32 rescoring list."""
+def near_tie_rows(x, cb) -> torch.Tensor:
+    """The rows of (x, cb) that B1's merge puts on its fp32 rescoring list."""
     m, n = x.shape[0], cb.shape[0]
     splits = vq_cuda.scan_splits(m, n, torch.cuda.get_device_properties(x.device)
                                  .multi_processor_count)
     _, scratch = vq_cuda._launch_scan(x, cb, splits)
-    return vq_cuda.listed_rows(scratch, m, splits)
+    at = 8 * m + 4 * 3 * splits * m   # the list's place in the scratch (scratch_pointers)
+    count = vq_cuda.listed_rows(scratch, m, splits)
+    return scratch[at:at + 4 * m].view(torch.int32)[:count].long()
+
+
+def near_ties(x, cb) -> int:
+    """How many rows of (x, cb) B1's merge puts on its fp32 rescoring list."""
+    return near_tie_rows(x, cb).numel()
 
 
 def _scan_sweep(device, card: str) -> None:
@@ -720,32 +757,39 @@ def _turns(fns: dict, reps: int, windows: int = 5, warmup: int = 2) -> dict:
     return {k: (statistics.mean(v), v) for k, v in times.items()}
 
 
+def _time_b1(x, cb, card: str) -> dict:
+    """B1 on (x, cb) against the plain version and ``addmm`` + ``argmin``,
+    timed in turns, beside its 3xTF32 bound and its device time; prints the
+    line and returns the row of the kernels' record."""
+    (m, d), n = x.shape, cb.shape[0]
+    c2 = (cb ** 2).sum(1)
+    t = _turns({"plain": lambda: nearest_codes_reference(x, cb),
+                "kernel": lambda: vq_cuda.nearest_codes_cuda(x, cb),
+                # one cuBLAS GEMM with the |c|^2 bias fused, then argmin
+                "library": lambda: torch.addmm(c2, x, cb.T, alpha=-2).argmin(1)}, reps=20)
+    b_ms, b_by, ffma = bound_3xtf32(m, n, d, 4 * (m * d + n * d + m))
+    dev_ms = sum(device_ms(lambda: vq_cuda.nearest_codes_cuda(x, cb),
+                           "nearest_codes").values()) or None
+    lib_dev = sum(device_ms(lambda: torch.addmm(c2, x, cb.T, alpha=-2).argmin(1),
+                            "").values()) or None
+    k_ms, l_ms = t["kernel"][0], t["library"][0]
+    print(f"time [{card}]: nearest_codes ({m},{n},{d}) kernel {k_ms:.4f} ms "
+          f"(windows {t['kernel'][1][0]:.4f}, {t['kernel'][1][1]:.4f}; device time of the "
+          f"scan + merge {_ms(dev_ms)}), plain matmul+argmin {t['plain'][0]:.4f} ms, "
+          f"addmm+argmin {l_ms:.4f} ms (device time {_ms(lib_dev)}); bound {b_ms:.4f} ms "
+          f"({b_by}, at the 3xTF32 tensor-core rate; the scan's device time reaches "
+          f"{_reach(b_ms, dev_ms)} of it), FFMA bound {ffma:.4f} ms; kernel "
+          f"{'below' if k_ms < l_ms else 'NOT below'} addmm+argmin")
+    return {k: v[0] for k, v in t.items()} | {"bound": b_ms, "bound_by": b_by, "device": dev_ms}
+
+
 def phase_times(cfg, model, device, card: str):
     gen = torch.Generator(device=device).manual_seed(SEED + 2)
     rows = {}
     for m, n, d in B1_TIMED:
         x = torch.randn(m, d, device=device, generator=gen)
         cb = torch.randn(n, d, device=device, generator=gen)
-        c2 = (cb ** 2).sum(1)
-        t = _turns({"plain": lambda: nearest_codes_reference(x, cb),
-                    "kernel": lambda: vq_cuda.nearest_codes_cuda(x, cb),
-                    # one cuBLAS GEMM with the |c|^2 bias fused, then argmin
-                    "library": lambda: torch.addmm(c2, x, cb.T, alpha=-2).argmin(1)}, reps=20)
-        b_ms, b_by, ffma = bound_3xtf32(m, n, d, 4 * (m * d + n * d + m))
-        dev_ms = sum(device_ms(lambda: vq_cuda.nearest_codes_cuda(x, cb),
-                               "nearest_codes").values()) or None
-        lib_dev = sum(device_ms(lambda: torch.addmm(c2, x, cb.T, alpha=-2).argmin(1),
-                                "").values()) or None
-        rows[(m, n, d)] = {k: v[0] for k, v in t.items()} | {"bound": b_ms, "bound_by": b_by,
-                                                             "device": dev_ms}
-        k_ms, l_ms = t["kernel"][0], t["library"][0]
-        print(f"time [{card}]: nearest_codes ({m},{n},{d}) kernel {k_ms:.4f} ms "
-              f"(windows {t['kernel'][1][0]:.4f}, {t['kernel'][1][1]:.4f}; device time of the "
-              f"scan + merge {_ms(dev_ms)}), plain matmul+argmin {t['plain'][0]:.4f} ms, "
-              f"addmm+argmin {l_ms:.4f} ms (device time {_ms(lib_dev)}); bound {b_ms:.4f} ms "
-              f"({b_by}, at the 3xTF32 tensor-core rate; the scan's device time reaches "
-              f"{_reach(b_ms, dev_ms)} of it), FFMA bound {ffma:.4f} ms; kernel "
-              f"{'below' if k_ms < l_ms else 'NOT below'} addmm+argmin")
+        rows[(m, n, d)] = _time_b1(x, cb, card)
     _scan_sweep(device, card)
     b1 = rows[B1_TIMED[0]]
 
@@ -1063,10 +1107,13 @@ def phase_gan_times(cfg, runs, batch, card: str) -> None:
                     trainer.host_step = 0 if r1 else 1
                     trainer.train_step(state, batch, epoch=epoch)
                 return fn
-            # an R1 step takes ~30x a plain one (PERF.md): one window each, no
-            # warm-up (phase_gan has run one already), to keep the script short
-            t = _turns({"plain": step(False), "fused": step(True)}, reps=1,
-                       windows=1 if r1 else 3, warmup=0 if r1 else 1)
+            if r1:   # ~30x a plain step (PERF.md): one window each, no warm-up
+                # (phase_gan has run one already) and no turns, to keep the script short
+                t = {k: (ms, [ms]) for k, ms in (("plain", cuda_ms(step(False), 1, 1, 0)),
+                                                 ("fused", cuda_ms(step(True), 1, 1, 0)))}
+            else:
+                t = _turns({"plain": step(False), "fused": step(True)}, reps=1, windows=3,
+                           warmup=1)
             kind = "R1" if r1 else "non-R1"
             print(f"time [{card}]: gan train_step {kind} {name} batch {GAN_BATCH}: fused D "
                   f"backward {t['fused'][0]:.2f} ms ({GAN_BATCH * 1000 / t['fused'][0]:.1f} "
@@ -1858,14 +1905,28 @@ def _ddp_gan_run(device) -> dict:
 
 
 def _ddp_worker(leg: str, out: Path, argv: list) -> None:
-    """One rank of a ddp leg, started by torchrun (leg (a)'s run without a
-    group: alone). TF32 off. Leg ``train`` (a) runs the train CLI with
-    cuDNN's deterministic algorithms, so that two runs can agree bit for
-    bit; the others join a gloo group on card 0 (two ranks share the one
-    card, which NCCL refuses) after checking gloo's all-reduce of a CUDA
-    tensor. Writes ``out/rank<r>.pt``."""
+    """One rank of a ddp or serve leg, started by torchrun (leg (a)'s run
+    without a group: alone). TF32 off. Leg ``train`` (ddp (a)) runs the
+    train CLI with cuDNN's deterministic algorithms, so that two runs can
+    agree bit for bit; leg ``tokenize`` (serve (c)) runs the token-export
+    CLI, which starts its own group; the others join a gloo group on card 0
+    (two ranks share the one card, which NCCL refuses) after checking
+    gloo's all-reduce of a CUDA tensor. Writes ``out/rank<r>.pt``."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if leg == "tokenize":   # serve (c): the CLI starts its own group (NCCL)
+        seen = []
+        real_spatial = spatial.make_spatial_apply
+
+        def make_spatial(*args, **kwargs):
+            seen.append((pdist.world(), torch.distributed.get_backend()))
+            return real_spatial(*args, **kwargs)
+
+        _reset_counts()
+        with mock.patch.object(spatial, "make_spatial_apply", make_spatial):
+            cli_tokenize.main(argv)
+        torch.save({"spatial": seen, "b1": nearest_codes.launches}, out / "rank0.pt")
+        return
     if leg == "train":
         torch.backends.cudnn.deterministic = True
         seen = {}
@@ -1895,6 +1956,8 @@ def _ddp_worker(leg: str, out: Path, argv: list) -> None:
             found = _ddp_ema_run(pdist.default_device())
         elif leg == "gan":
             found = _ddp_gan_run(pdist.default_device())
+        elif leg == "spatial":
+            found = _spatial_run(pdist.default_device())
         elif leg == "eval":
             calls = []
             real_eval = loop.Trainer.eval_step
@@ -2161,6 +2224,308 @@ def phase_ddp(card: str, device, tmp: Path) -> dict:
     return dict(launches)
 
 
+def _lightning_ckpt(model, path: Path) -> None:
+    """``model``'s weights as the reference's PyTorch-Lightning checkpoint
+    holds them: the LightningModule's state_dict (the port's names), with an
+    entry of the loss stack (``criterion.*``) that an import drops."""
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    sd["criterion.perceptual_loss.lin0.model.1.weight"] = torch.ones(1, 64, 1, 1)
+    torch.save({"epoch": 0, "global_step": 0, "state_dict": sd}, path)
+
+
+def _serve_import(tmp: Path, card: str, device) -> int:
+    """Leg (a): seeded full-width weights of ``standard_vqvae.yaml`` and
+    ``gumbel_vqgan.yaml`` as reference checkpoints, through
+    ``cli.import_torch_checkpoint`` and ``restore_for_eval`` (a Trainer of
+    the config, as the CLIs build it): the same weights, and ``get_tokens``
+    at batch SERVE_BATCH equal to the source model's on every row. -> B1
+    launches."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 20)
+    launches = 0
+    for config in (CONFIG, GAN_CONFIG):
+        cfg = load_config(str(config))
+        gumbel = cfg.quantizer.type == "gumbel"
+        source = VQVAE.from_config(cfg, device=device,
+                                   generator=torch.Generator().manual_seed(SEED + 21))
+        _lightning_ckpt(source, tmp / f"{config.stem}.ckpt")
+        out = tmp / "imported" / config.stem
+        t0 = time.perf_counter()
+        cli_import_torch.main(["--ckpt", str(tmp / f"{config.stem}.ckpt"), "--params_file",
+                               str(config), "--output", str(out)])
+        t_import = time.perf_counter() - t0
+        trainer = Trainer(cfg, learning_rate=cfg.training.base_lr, seed=SEED, steps_per_epoch=1,
+                          compute_dtype=torch.float32, device=device)
+        model = restore_for_eval(str(out), trainer.init_state()).model
+        theirs = source.state_dict()
+        check(all(torch.equal(v, theirs[k]) for k, v in model.state_dict().items()),
+              f"serve (a) {config.stem}: the imported weights are the source's")
+        size = cfg.image_size
+        images = torch.rand(SERVE_BATCH, size, size, 3, device=device, generator=gen)
+        kw = {"deterministic": True} if gumbel else {}
+        _reset_counts()
+        want = source.get_tokens(images, **kw)
+        got = model.get_tokens(images, **kw)
+        torch.cuda.synchronize()
+        b1 = nearest_codes.launches
+        rows = int((got != want).any(1).sum())
+        print(f"serve (a) [{card}]: {config.stem} reference checkpoint -> "
+              f"cli.import_torch_checkpoint ({t_import:.2f} s) -> restore_for_eval: weights "
+              f"equal; get_tokens{' deterministic' if gumbel else ''} batch {SERVE_BATCH}: "
+              f"{rows} of {SERVE_BATCH} rows differ from the source model's; B1 launched "
+              f"{b1} times")
+        check(rows == 0 and torch.equal(got, want),
+              f"serve (a) {config.stem}: the imported model's tokens are the source's")
+        check(b1 == (0 if gumbel else 2),
+              f"serve (a) {config.stem}: B1 once per standard get_tokens, never for gumbel")
+        launches += b1
+        del source, model, trainer
+        torch.cuda.empty_cache()
+    return launches
+
+
+def _spatial_images() -> torch.Tensor:
+    """Leg (b)'s images, made on the CPU from a seed (the same on every
+    process)."""
+    return torch.rand(SPATIAL_BATCH, SPATIAL_SIZE, SPATIAL_SIZE, 3,
+                      generator=torch.Generator().manual_seed(SEED + 23))
+
+
+def _spatial_model(device) -> VQVAE:
+    return VQVAE.from_config(load_config(str(CONFIG)), device=device,
+                             generator=torch.Generator().manual_seed(SEED + 22))
+
+
+def _timed_call(fn, x, device):
+    """``fn(x)`` twice (the first sets up cuDNN and the allocator); the
+    second timed between synchronisations, with the peak memory it
+    allocated above what the process held when it began (the weights and
+    inputs), so that processes holding other things compare. -> (output,
+    ms, peak GiB)."""
+    fn(x)
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    held = torch.cuda.memory_allocated(device)
+    t0 = time.perf_counter()
+    out = fn(x)
+    torch.cuda.synchronize(device)
+    ms = (time.perf_counter() - t0) * 1e3
+    return out, ms, (torch.cuda.max_memory_allocated(device) - held) / 2 ** 30
+
+
+def _spatial_run(device) -> dict:
+    """Leg (b) on one rank: ``standard_vqvae.yaml`` at full width, fp32, TF32
+    off, this rank's rows of the images through ``make_spatial_apply``:
+    ``get_tokens``, then ``reconstruct``."""
+    model = _spatial_model(device)
+    x = shard_rows(_spatial_images()).to(device)
+    _reset_counts()
+    found = {"rank": pdist.world()[0]}
+    for method in ("get_tokens", "reconstruct"):
+        out, ms, peak = _timed_call(make_spatial_apply(model, method), x, device)
+        found[method] = {"out": out.cpu(), "ms": ms, "peak_gib": peak}
+    found["b1"] = nearest_codes.launches
+    return found
+
+
+def _serve_spatial(tmp: Path, card: str, device) -> int:
+    """Leg (b): two gloo ranks on the one card, each holding half the rows of
+    SPATIAL_BATCH images of SPATIAL_SIZE^2, against one process on whole
+    images on the same card. -> B1 launches (both ranks' and this
+    process's)."""
+    ranks = _torchrun(2, "spatial", tmp / "serve_b")
+    model = _spatial_model(device)
+    images = _spatial_images().to(device)
+    _reset_counts()
+    tokens, t_ms, t_peak = _timed_call(model.get_tokens, images, device)
+    recon, r_ms, r_peak = _timed_call(model.reconstruct, images, device)
+    b1 = nearest_codes.launches
+    with torch.inference_mode():
+        z = model.encode(preprocess_batch(images))
+    flat, cb = z.reshape(-1, z.shape[-1]).contiguous(), model.quantizer.codebook.weight
+    listed = near_tie_rows(flat, cb)
+    spatial_tokens = ranks[0]["get_tokens"]["out"].to(device)
+    check(torch.equal(spatial_tokens, ranks[1]["get_tokens"]["out"].to(device)),
+          "serve (b): both ranks gathered the same tokens")
+    n_mis, n_bad, gap = code_mismatches(flat, cb, spatial_tokens.reshape(-1), tokens.reshape(-1))
+    off_list = int((~torch.isin((spatial_tokens != tokens).reshape(-1).nonzero().flatten(),
+                                listed)).sum())
+    print(f"serve (b) [{card}]: get_tokens, standard_vqvae.yaml fp32, TF32 off, "
+          f"{SPATIAL_BATCH} x {SPATIAL_SIZE}^2, 2 gloo ranks on one card vs one process: "
+          f"{n_mis} of {flat.shape[0]} codes differ ({listed.numel()} rows on B1's near-tie "
+          f"list; {off_list} mismatches off it, {n_bad} outside the float64 near-tie rule, "
+          f"max score gap {gap:.3e})")
+    check(off_list == 0 and n_bad == 0,
+          "serve (b): spatial tokens equal one process's but on B1's near-tie rows")
+    # the decoder of one process on the ranks' own tokens, and, if they are
+    # all one process's, its reconstruct: each rank's slab within SPATIAL_ATOL
+    from_tokens = model.reconstruct_from_tokens(spatial_tokens)
+    rows = SPATIAL_SIZE // 2
+    errors = {}
+    for r in ranks:
+        slab = r["reconstruct"]["out"].to(device)
+        check(slab.shape == (SPATIAL_BATCH, rows, SPATIAL_SIZE, 3),
+              f"serve (b): rank {r['rank']} holds its slab of the images")
+        want = from_tokens[:, r["rank"] * rows:(r["rank"] + 1) * rows]
+        errors[r["rank"]] = float((slab - want).abs().max())
+        if n_mis == 0:
+            plain = recon[:, r["rank"] * rows:(r["rank"] + 1) * rows]
+            errors[r["rank"]] = max(errors[r["rank"]], float((slab - plain).abs().max()))
+    print(f"serve (b) [{card}]: reconstruct slabs vs one process's rows ("
+          + ("its reconstruct and " if n_mis == 0 else "")
+          + "its reconstruct_from_tokens of the spatial tokens): max |diff| per rank "
+          + ", ".join(f"{e:.3e}" for e in errors.values()) + f" (atol {SPATIAL_ATOL})")
+    check(max(errors.values()) <= SPATIAL_ATOL, "serve (b): reconstruct slabs within tolerance")
+    for r in ranks:
+        check(r["b1"] == 4, f"serve (b): rank {r['rank']}: B1 once per call ({r['b1']} for 4)")
+        print(f"time [{card}]: serve (b) rank {r['rank']} of 2 gloo ranks on one card, "
+              f"{SPATIAL_BATCH} x {SPATIAL_SIZE // 2} x {SPATIAL_SIZE} rows, fp32: get_tokens "
+              f"{r['get_tokens']['ms']:.1f} ms, peak {r['get_tokens']['peak_gib']:.2f} GiB; "
+              f"reconstruct {r['reconstruct']['ms']:.1f} ms, peak "
+              f"{r['reconstruct']['peak_gib']:.2f} GiB; B1 launched {r['b1']} times")
+    print(f"time [{card}]: serve (b) one process, {SPATIAL_BATCH} x {SPATIAL_SIZE}^2, fp32: "
+          f"get_tokens {t_ms:.1f} ms, peak {t_peak:.2f} GiB; reconstruct {r_ms:.1f} ms, peak "
+          f"{r_peak:.2f} GiB; per-rank peak / one process: get_tokens "
+          + ", ".join(f"{r['get_tokens']['peak_gib'] / t_peak:.3f}" for r in ranks)
+          + ", reconstruct " + ", ".join(f"{r['reconstruct']['peak_gib'] / r_peak:.3f}"
+                                         for r in ranks))
+    return sum(r["b1"] for r in ranks) + b1
+
+
+def _serve_tokenize_nccl(tmp: Path, card: str) -> int:
+    """Leg (c): the token-export CLI with ``--spatial`` under torchrun at
+    world 1 on NCCL, against the CLI without it in this process: the tokens
+    of leg (a)'s imported ``standard_vqvae.yaml`` snapshot over
+    SERVE_IMAGES seeded images, token for token. -> B1 launches."""
+    size = load_config(str(CONFIG)).image_size
+    rs = np.random.RandomState(SEED + 24)
+    (tmp / "serve_data").mkdir()
+    write_packed(str(tmp / "serve_data" / "train.pack"),
+                 (rs.randint(0, 256, (size, size, 3), dtype=np.uint8)
+                  for _ in range(SERVE_IMAGES)), size)
+    args = ["--params_file", str(CONFIG), "--loading_path",
+            str(tmp / "imported" / CONFIG.stem), "--dataset_path", str(tmp / "serve_data"),
+            "--splits", "train", "--batch_size", str(SERVE_BATCH), "--dataloader", "packed",
+            "--workers", "4", "--seed", str(SEED)]
+    (nccl,) = _torchrun(1, "tokenize", tmp / "serve_c", *args, "--output_folder",
+                        str(tmp / "serve_c" / "spatial"), "--spatial")
+    _reset_counts()
+    cli_tokenize.main(args + ["--output_folder", str(tmp / "serve_c" / "plain")])
+    plain_b1 = nearest_codes.launches
+    got = np.load(tmp / "serve_c" / "spatial" / "train_tokens.npy")
+    want = np.load(tmp / "serve_c" / "plain" / "train_tokens.npy")
+    batches = -(-SERVE_IMAGES // SERVE_BATCH)
+    check(nccl["spatial"] == [((0, 1), "nccl")],
+          f"serve (c): --spatial ran under torchrun's world of 1 on NCCL ({nccl['spatial']})")
+    check(got.shape == want.shape == (SERVE_IMAGES, load_config(str(CONFIG)).latent_size ** 2)
+          and np.array_equal(got, want), "serve (c): --spatial at world 1 = the plain run")
+    check(nccl["b1"] == plain_b1 == batches, "serve (c): B1 once per batch in both runs")
+    print(f"serve (c) [{card}]: cli.tokenize_dataset --spatial, torchrun world 1 on NCCL, vs "
+          f"without --spatial, {SERVE_IMAGES} images at batch {SERVE_BATCH} from the imported "
+          f"standard_vqvae.yaml snapshot: {got.size} tokens equal; B1 {nccl['b1']} / {plain_b1}")
+    return nccl["b1"] + plain_b1
+
+
+def _serve_probe(card: str) -> tuple:
+    """Leg (d): ``probe_max_resolution`` in fp32 from PROBE_START until a
+    call fails (cap PROBE_MAX); B1's codes in the probe's last call, on the
+    latents of the largest resolution that fit, against its plain version;
+    then B1 timed on them. -> (B1 launches of the probe, B1's row at that
+    shape, its largest score gap)."""
+    torch.cuda.empty_cache()
+    _reset_counts()
+    with _CodeSpy(nearest_codes) as spy:
+        rows = probe_max_resolution.main(["--start", str(PROBE_START), "--max", str(PROBE_MAX),
+                                          "--dtype", "fp32"])
+    b1 = nearest_codes.launches
+    fit = [r for r in rows if r["ok"]]
+    check(len(fit) > 0 and b1 == 2 * len(fit),
+          f"serve (d): the probe's get_tokens launched B1 twice per resolution that fit ({b1})")
+    check(all("nearest_codes" not in r.get("error", "") for r in rows),
+          "serve (d): the probe stopped on memory or a library's size limit, not on B1")
+    top = fit[-1]["res"]
+    print(f"serve (d) [{card}]: the probe, fp32, TF32 off, batch 1, channels 128: "
+          + "; ".join(f"{r['res']}^2 " + (f"{r['ms']:.1f} ms, peak {r['peak_gb']:.2f} GB "
+                                          f"(estimate JAX {r['jax_estimate_gb']:.2f}, port "
+                                          f"{r['port_estimate_gb']:.2f} GB)" if r["ok"] else
+                                          f"failed (estimate port {r['port_estimate_gb']:.2f} GB)")
+                      for r in rows) + f"; ceiling {top}^2"
+          + "".join(f"; {r['res']}^2 failed: {r['error']}" for r in rows if not r["ok"]))
+    x, cb, codes = spy.calls[-1]
+    spy.calls.clear()
+    x, cb = x.contiguous(), cb.contiguous()   # the spy's copy keeps the view's strides
+    # the probe's model downsamples by 16 (multipliers [1, 2, 2, 4])
+    check(x.shape[0] == (top // 16) ** 2, f"serve (d): the last B1 call holds {top}^2's latents")
+    gap = _agree(x, cb, codes, nearest_codes_reference(x, cb),
+                 f"serve (d): B1 in the probe's {top}^2 call vs plain on its latents "
+                 f"({tuple(x.shape)}, {near_ties(x, cb)} near ties rescored)")
+    row = _time_b1(x, cb, card) | {"shape": [x.shape[0], cb.shape[0], x.shape[1]]}
+    return b1, row, gap
+
+
+def _serve_bench(card: str) -> dict:
+    """Leg (e): ``bench_infer``'s line, bf16 as the tool runs by default, and
+    fp32 (TF32 off) with BENCH_FP32_STEPS calls per window."""
+    lines = {"bf16": bench_infer.main(["--dtype", "bf16"])}
+    with mock.patch.dict(os.environ, {"VQGAN_INFER_STEPS": str(BENCH_FP32_STEPS)}):
+        lines["fp32"] = bench_infer.main(["--dtype", "fp32"])
+    for dtype, line in lines.items():
+        rates = [line[k] for k in ("tokenize_ips", "reconstruct_ips", "detokenize_ips")]
+        check(all(math.isfinite(v) and v > 0 for v in rates) and line["card"] == card,
+              f"serve (e): bench_infer {dtype}: three positive rates on this card")
+        print(f"time [{card}]: serve (e) bench_infer {dtype}, batch {line['batch']}, 256^2 "
+              f"gumbel VQGAN: tokenize {rates[0]:.1f}, reconstruct {rates[1]:.1f}, detokenize "
+              f"{rates[2]:.1f} images/s")
+    return lines
+
+
+def _serve_grid_sample(card: str, device) -> None:
+    """Leg (f): ``misc_ops.grid_sample``'s second-order gradients on the card
+    against the CPU's, float64."""
+    rs = np.random.RandomState(SEED + 27)
+    x = rs.randn(2, 3, 16, 16)
+    grid = (rs.rand(2, 8, 8, 2) * 2 - 1) * 1.1
+    results = {}
+    for where in ("cpu", device):
+        tx = torch.tensor(x, device=where, requires_grad=True)
+        tg = torch.tensor(grid, device=where, requires_grad=True)
+        (g1,) = torch.autograd.grad((misc_ops.grid_sample(tx, tg) ** 2).sum(), tg,
+                                    create_graph=True)
+        results[str(where)] = [g.cpu() for g in torch.autograd.grad((g1 ** 2).sum(), (tx, tg))]
+    (ggx, ggg), (ggx_cpu, ggg_cpu) = results[str(device)], results["cpu"]
+    errs = [_share(ggx, ggx_cpu), _share(ggg, ggg_cpu)]
+    print(f"serve (f) [{card}]: grid_sample second-order gradients, float64, card vs CPU: "
+          f"image {errs[0]:.3e}, grid {errs[1]:.3e} of the largest entry "
+          f"(limit {GRID_SHARE})")
+    check(max(errs) <= GRID_SHARE, "serve (f): grid_sample's second-order gradients")
+
+
+def phase_serve(card: str, device, tmp: Path) -> tuple:
+    """Checkpoints made elsewhere and images one card cannot hold: (a)
+    reference checkpoints imported; (b) height-sharded tokenizer inference on
+    2 gloo ranks against one process; (c) the token CLI's ``--spatial`` at
+    world 1 on NCCL; (d) the single-card resolution ceiling and B1 on its
+    latents; (e) ``bench_infer``; (f) ``grid_sample``'s second order on the
+    card. -> (B1 launches, B1's row at the probe's shape, its score gap)."""
+    torch.cuda.empty_cache()
+    launches, b1_large, gap = 0, None, 0.0
+    for leg, fn in (("a", lambda: _serve_import(tmp, card, device)),
+                    ("b", lambda: _serve_spatial(tmp, card, device)),
+                    ("c", lambda: _serve_tokenize_nccl(tmp, card)),
+                    ("d", lambda: _serve_probe(card)),
+                    ("e", lambda: _serve_bench(card)),
+                    ("f", lambda: _serve_grid_sample(card, device))):
+        t0 = time.perf_counter()
+        found = fn()
+        if leg == "d":
+            found, b1_large, gap = found
+        n = found if isinstance(found, int) else 0
+        launches += n
+        torch.cuda.empty_cache()
+        print(f"time [{card}]: serve ({leg}) took {time.perf_counter() - t0:.1f} s; B1 "
+              f"launches {n}")
+    return launches, b1_large, gap
+
+
 def _record(name, source, replaces, launches, max_abs_err, shape, t) -> dict:
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": max_abs_err, "ms": t["kernel"],
@@ -2213,12 +2578,17 @@ def main() -> None:
         ddp = phase_ddp(card, device, tmp)
         print(f"time [{card}]: ddp: the phase took {time.perf_counter() - t_ddp:.1f} s; "
               f"launches, every rank's {ddp}")
+        t_serve = time.perf_counter()
+        b1_serve, b1_large, large_gap = phase_serve(card, device, tmp)
+        print(f"time [{card}]: serve: the phase took {time.perf_counter() - t_serve:.1f} s; "
+              f"nearest_codes launches, every rank's {b1_serve}")
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [
         # launches: the tokenizer path's, the training path's, the train
         # CLI's (cli_launches: the last alone, counted from 0 for each of its
-        # legs), the eval and token-export CLIs' (eval_launches) and the ddp
-        # phase's, every rank's (ddp_launches); max_abs_err:
+        # legs), the eval and token-export CLIs' (eval_launches), the ddp
+        # phase's, every rank's (ddp_launches) and the serve phase's, every
+        # rank's (serve_launches); max_abs_err:
         # the largest float64 score gap between the kernel's and the plain
         # version's pick over every compared row (0.0 where all agree)
         # bound_ms: 3 TF32 passes x 2MND on the tensor cores (bound_ops; the
@@ -2227,10 +2597,17 @@ def main() -> None:
         _record("nearest_codes", "vqvae_tpu_torch/csrc/nearest_codes.cu",
                 "vqvae_tpu/ops/vq_pallas.py:141",
                 b1_tokenizer + b1_train + cli["nearest_codes"] + b1_eval
-                + ddp.get("nearest_codes", 0),
-                max(kernel_gap, slice_gap), (8192, 1024, 256), b1) | _scan_bound(b1)
+                + ddp.get("nearest_codes", 0) + b1_serve,
+                max(kernel_gap, slice_gap, large_gap), (8192, 1024, 256), b1) | _scan_bound(b1)
         | {"cli_launches": cli["nearest_codes"], "eval_launches": b1_eval,
-           "ddp_launches": ddp.get("nearest_codes", 0)},
+           "ddp_launches": ddp.get("nearest_codes", 0), "serve_launches": b1_serve,
+           # the serve phase's probe: B1 on the latents of one image at the
+           # card's resolution ceiling
+           "ceiling_shape": {"shape": b1_large["shape"], "ms": b1_large["kernel"],
+                             "plain_ms": b1_large["plain"], "bound_ms": b1_large["bound"],
+                             "bound_by": b1_large["bound_by"],
+                             "library_ms": b1_large["library"],
+                             "device_ms": b1_large["device"], "max_abs_err": large_gap}},
         # max_abs_err: the largest |dw - dw_plain| over the compared shapes
         _record("nearest_codes_stats", "vqvae_tpu_torch/csrc/nearest_codes_stats.cu",
                 "vqvae_tpu/ops/vq_pallas.py:89",

@@ -4,8 +4,9 @@ CLIs (``evaluate``, ``tools.*``), no file of it imports them, its own config
 parser equals the JAX package's, its entry points (``run_training``, the
 train, eval and token-export CLIs and the FID extractor among them) ask for
 the card unless told otherwise, its copies of the host sources keep the C interface
-their loaders bind, ``chip_smoke.py`` refuses to run without a GPU, and the
-profiler sorts kernel names into the kinds it reports.
+their loaders bind, ``chip_smoke.py`` refuses to run without a GPU, the
+profiler sorts kernel names into the kinds it reports, and the export step
+of a JAX checkpoint (``tools/export_jax_checkpoint.py``) loads no torch.
 """
 
 import ctypes
@@ -37,7 +38,11 @@ assert {"vqvae_tpu_torch.cli.train", "vqvae_tpu_torch.cli.create_packed_dataset"
         "vqvae_tpu_torch.eval.metrics", "vqvae_tpu_torch.eval.inception",
         "vqvae_tpu_torch.eval.fid", "vqvae_tpu_torch.train.loop",
         "vqvae_tpu_torch.data.dataset", "vqvae_tpu_torch.parallel",
-        "vqvae_tpu_torch.parallel.dist", "vqvae_tpu_torch.utils.introspect"} <= set(names)
+        "vqvae_tpu_torch.parallel.dist", "vqvae_tpu_torch.utils.introspect",
+        "vqvae_tpu_torch.parallel.spatial", "vqvae_tpu_torch.utils.torch_import",
+        "vqvae_tpu_torch.cli.import_torch_checkpoint", "vqvae_tpu_torch.cli.import_jax_checkpoint",
+        "vqvae_tpu_torch.ops.misc_ops", "vqvae_tpu_torch.bench_infer",
+        "vqvae_tpu_torch.probe_max_resolution"} <= set(names)
 from vqvae_tpu_torch.models.lpips import LPIPS
 for net in ("alex", "squeeze"):
     LPIPS(net, device="cpu")
@@ -52,7 +57,7 @@ def test_import_loads_no_jax():
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n_modules, loaded = out.stdout.split(maxsplit=1)
-    assert int(n_modules) >= 47
+    assert int(n_modules) >= 54
     assert loaded.strip() == "[]"
 
 
@@ -269,6 +274,32 @@ def test_host_sources_keep_the_c_interface_their_loaders_bind(name, module):
     assert {k: ours[k] for k in signatures} == {
         k: (r, list(a)) for k, (r, a) in signatures.items()}
     assert ours == _c_interface(ROOT / "csrc" / f"{name}.cpp")
+
+
+_EXPORT = """
+import runpy, sys
+runpy.run_path("tools/export_jax_checkpoint.py")["main"](sys.argv[1:])
+print(sorted(m for m in ("torch", "vqvae_tpu_torch") if m in sys.modules))
+"""
+
+
+def test_jax_export_tool_loads_no_torch(tmp_path):
+    """The first step of bringing in a JAX snapshot runs where JAX is
+    installed: it reads an orbax snapshot and writes its ``.npz`` without
+    loading torch or the port."""
+    import numpy as np
+
+    from vqvae_tpu.utils.checkpoint import save_eval_checkpoint
+    params = {"encoder": {"conv_in": {"Conv_0": {"kernel": np.ones((3, 3, 3, 4), np.float32)}}}}
+    save_eval_checkpoint(str(tmp_path / "snap"), {"params": params}, step=3)
+    out = subprocess.run([sys.executable, "-c", _EXPORT, "--loading_path",
+                          str(tmp_path / "snap"), "--output", str(tmp_path / "snap.npz")],
+                         cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+    with np.load(tmp_path / "snap.npz") as f:
+        assert sorted(f.files) == ["params/encoder/conv_in/Conv_0/kernel", "step"]
+        assert int(f["step"]) == 3
 
 
 def test_chip_smoke_refuses_without_gpu():

@@ -6,11 +6,12 @@ images at batch 4, so both last batches are padded). The token ``.npy``
 files are exactly equal and the manifests equal, for a standard config and
 for a gumbel one with deterministic tokens; ``--sampled_tokens`` draws from
 a seeded generator (the same tokens for the same seed) and ``--spatial``
-names its ROADMAP item.
+under a group of one process writes the plain run's tokens.
 """
 
 import json
 import runpy
+import socket
 import sys
 from pathlib import Path
 
@@ -27,6 +28,7 @@ from vqvae_tpu.utils.checkpoint import save_eval_checkpoint
 from vqvae_tpu_torch.cli import tokenize_dataset as cli_tokenize
 from vqvae_tpu_torch.config import parse_config
 from vqvae_tpu_torch.data.packed import write_packed
+from vqvae_tpu_torch.parallel import spatial
 from vqvae_tpu_torch.train.loop import Trainer
 from vqvae_tpu_torch.utils.checkpoint import CheckpointManager
 from vqvae_tpu_torch.utils.convert import convert_vqvae_variables
@@ -121,7 +123,34 @@ def test_sampled_tokens_follow_the_seed(data, tmp_path):
     assert not np.array_equal(runs["a"], runs["argmax"])
 
 
-def test_spatial_names_its_roadmap_item(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A, item 11"):
-        cli_tokenize.main(["--params_file", "x", "--loading_path", "x", "--dataset_path", "x",
-                           "--output_folder", str(tmp_path), "--spatial"])
+def test_spatial_names_its_roadmap_item(data, tmp_path, monkeypatch):
+    """``--spatial`` is ported: under torchrun's environment at world 1 (gloo
+    with ``--device cpu``) it writes the tokens of the run without it and
+    leaves the group it started; with ``--sampled_tokens`` it raises (the
+    two ranks' case is ``tests/test_torch_spatial.py``)."""
+    params, _, port_ckpt = _checkpoints(tmp_path, "gumbel")
+    common = ["--params_file", str(params), "--loading_path", str(port_ckpt), "--dataset_path",
+              str(data), "--splits", "train", "--batch_size", "4", "--dataloader", "packed",
+              "--workers", "1", "--seed", "3", "--device", "cpu"]
+    with pytest.raises(ValueError, match="deterministic tokens only"):
+        cli_tokenize.main([*common, "--output_folder", str(tmp_path / "x"), "--spatial",
+                           "--sampled_tokens"])
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    for name, value in (("RANK", "0"), ("WORLD_SIZE", "1"), ("LOCAL_RANK", "0"),
+                        ("MASTER_ADDR", "127.0.0.1"), ("MASTER_PORT", str(port))):
+        monkeypatch.setenv(name, value)
+    seen = []
+    real = spatial.make_spatial_apply
+
+    def record(*args, **kwargs):
+        seen.append((torch.distributed.get_backend(), torch.distributed.get_world_size()))
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(spatial, "make_spatial_apply", record)
+    cli_tokenize.main([*common, "--output_folder", str(tmp_path / "spatial"), "--spatial"])
+    assert seen == [("gloo", 1)] and not torch.distributed.is_initialized()
+    cli_tokenize.main([*common, "--output_folder", str(tmp_path / "plain")])
+    np.testing.assert_array_equal(np.load(tmp_path / "spatial" / "train_tokens.npy"),
+                                  np.load(tmp_path / "plain" / "train_tokens.npy"))

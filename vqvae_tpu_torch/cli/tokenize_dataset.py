@@ -18,10 +18,22 @@ The gumbel quantizer's tokens are the deterministic argmax by default.
 does (vector_quantizers.py:265-274), from a ``torch.Generator`` seeded by
 ``--seed`` anew for each split; that stream cannot equal ``jax.random``'s,
 so sampled tokens differ from the JAX CLI's (deterministic ones agree).
-``--spatial`` (height-sharded inference over several devices) is
-ROADMAP.md queue A, item 11. One process on one card, as the JAX tool: it
+Without ``--spatial`` it is one process on one card, as the JAX tool, and
 starts no process group. ``main(argv)`` runs in process and returns the
 manifest.
+
+``--spatial`` splits each image's height over the processes of a group
+(``parallel/spatial.py``), for images whose activations exceed one card:
+under torchrun, one process per card (``cuda:LOCAL_RANK``, NCCL; gloo with
+``--device cpu``)::
+
+    torchrun --nproc_per_node 4 -m vqvae_tpu_torch.cli.tokenize_dataset \
+        --spatial --params_file conf.yaml ...
+
+Every process reads the same batches and tokenizes its own rows; the tokens
+are gathered, and process 0 writes the files. Deterministic tokens only
+(``--sampled_tokens`` raises). At world size 1 the tokens are those of the
+run without ``--spatial``.
 """
 
 from __future__ import annotations
@@ -47,7 +59,8 @@ def parse_args(argv=None):
                     help="gumbel quantizer: sample tokens through gumbel noise like the "
                          "reference vec_to_codes (default: deterministic argmax)")
     ap.add_argument("--spatial", action="store_true",
-                    help="shard each image's height across devices (not ported yet)")
+                    help="shard each image's height across the processes of a torchrun "
+                         "group (one per card)")
     ap.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
                     help="where to tokenize; cuda needs a visible card")
     return ap.parse_args(argv)
@@ -55,17 +68,24 @@ def parse_args(argv=None):
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    if args.spatial:
-        raise NotImplementedError(
-            "--spatial (height-sharded inference) is not ported yet "
-            "(ROADMAP.md queue A, item 11)")
+    if args.spatial and args.sampled_tokens:
+        raise ValueError("--spatial supports deterministic tokens only (drop --sampled_tokens)")
+    if not args.spatial:
+        return _tokenize(args)
+    from vqvae_tpu_torch.parallel.dist import process_group
+    with process_group(args.device):
+        return _tokenize(args)
 
+
+def _tokenize(args) -> dict:
     import numpy as np
     import torch
 
     from vqvae_tpu_torch.config import load_config
     from vqvae_tpu_torch.data.dataset import ImageFolderDataset, Loader
     from vqvae_tpu_torch.data.packed import PackedDataset
+    from vqvae_tpu_torch.parallel import dist as pdist
+    from vqvae_tpu_torch.parallel.spatial import make_spatial_apply, shard_rows
     from vqvae_tpu_torch.train.loop import Trainer
     from vqvae_tpu_torch.utils.checkpoint import restore_for_eval
     from vqvae_tpu_torch.utils.precision import set_full_fp32
@@ -74,7 +94,8 @@ def main(argv=None) -> dict:
         raise RuntimeError("--device cuda: no CUDA device is visible "
                            "(pass --device cpu to tokenize on the CPU)")
     set_full_fp32()
-    device = torch.device(args.device)
+    device = pdist.default_device() if args.device == "cuda" else torch.device("cpu")
+    rank, world = pdist.world()
     cfg = load_config(args.params_file)
     is_gumbel = cfg.quantizer.type == "gumbel"
     # the LR plays no part in tokenizing
@@ -82,8 +103,13 @@ def main(argv=None) -> dict:
                       learning_rate=cfg.training.base_lr, seed=args.seed, steps_per_epoch=1,
                       compute_dtype=torch.float32, device=device)
     model = restore_for_eval(args.loading_path, trainer.init_state()).model
+    if args.spatial:
+        spatial = make_spatial_apply(model, "get_tokens",
+                                     **({"deterministic": True} if is_gumbel else {}))
+        print(f"[INFO] spatial sharding over {world} processes")
 
-    os.makedirs(args.output_folder, exist_ok=True)
+    if rank == 0:
+        os.makedirs(args.output_folder, exist_ok=True)
     manifest = {"num_embeddings": cfg.quantizer.num_embeddings,
                 "quantizer": cfg.quantizer.type,
                 "image_size": cfg.image_size,
@@ -100,8 +126,13 @@ def main(argv=None) -> dict:
         generator = torch.Generator(device=device).manual_seed(args.seed)
         out = []
         for batch in loader:
-            images = torch.from_numpy(batch["image"]).to(device).float() / 255.0
-            if is_gumbel:
+            images = torch.from_numpy(batch["image"])
+            if args.spatial:   # this process's rows
+                images = shard_rows(images)
+            images = images.to(device).float() / 255.0
+            if args.spatial:
+                toks = spatial(images)
+            elif is_gumbel:
                 toks = model.get_tokens(images, deterministic=not args.sampled_tokens,
                                         generator=generator)
             else:
@@ -109,15 +140,18 @@ def main(argv=None) -> dict:
             out.append(toks[torch.from_numpy(np.asarray(batch["mask"], bool)).to(device)])
         tokens = torch.cat(out).cpu().numpy().astype(np.int32)
         path = os.path.join(args.output_folder, f"{split}_tokens.npy")
-        np.save(path, tokens)
+        if rank == 0:
+            np.save(path, tokens)
         manifest["splits"][split] = {"file": os.path.basename(path),
                                      "num_sequences": int(tokens.shape[0]),
                                      "seq_len": int(tokens.shape[1])}
         print(f"[INFO] {split}: {tokens.shape} -> {path}")
 
-    with open(os.path.join(args.output_folder, "manifest.json"), "w") as f:
-        json.dump(manifest, f, indent=2)
-    print(f"[INFO] manifest -> {args.output_folder}/manifest.json")
+    if rank == 0:
+        with open(os.path.join(args.output_folder, "manifest.json"), "w") as f:
+            json.dump(manifest, f, indent=2)
+        print(f"[INFO] manifest -> {args.output_folder}/manifest.json")
+    pdist.barrier()   # the files are written when any process returns
     return manifest
 
 

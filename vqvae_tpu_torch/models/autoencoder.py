@@ -52,7 +52,12 @@ def _uniform(shape, bound: float, generator: Optional[torch.Generator]) -> torch
 class GroupNorm(nn.Module):
     """GroupNorm with the unbiased variance (``/(n-1)``) and fp32 statistics
     (``vqvae_tpu/models/autoencoder.py:138-169``); ``nn.GroupNorm`` is biased.
-    Output in the compute dtype."""
+    Output in the compute dtype.
+
+    ``shards`` is None but while a height-sharded call runs
+    (``parallel/spatial.py``): then each process holds rows of the image, and
+    the two passes' sums (for the mean, then of the centred squares) are
+    summed over the processes, so the statistics are the whole image's."""
 
     def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-6,
                  dtype: torch.dtype = torch.float32):
@@ -62,6 +67,7 @@ class GroupNorm(nn.Module):
         self.num_groups = num_groups
         self.eps = eps
         self.dtype = dtype
+        self.shards = None
         self.weight = nn.Parameter(torch.ones(1, channels, 1, 1))
         self.bias = nn.Parameter(torch.zeros(1, channels, 1, 1))
 
@@ -70,9 +76,16 @@ class GroupNorm(nn.Module):
         g = self.num_groups
         n = (c // g) * h * w
         xg = x.float().reshape(b, g, n)
-        mean = xg.mean(-1, keepdim=True)
+        if self.shards is None:
+            mean = xg.mean(-1, keepdim=True)
+        else:
+            n *= self.shards.size
+            mean = self.shards.sum(xg.sum(-1, keepdim=True)) / n
         centered = xg - mean
-        var = (centered * centered).sum(-1, keepdim=True) / max(n - 1, 1)
+        squares = (centered * centered).sum(-1, keepdim=True)
+        if self.shards is not None:
+            squares = self.shards.sum(squares)
+        var = squares / max(n - 1, 1)
         xf = (centered * torch.rsqrt(var + self.eps)).reshape(b, c, h, w)
         return (xf * self.weight + self.bias).to(self.dtype)
 

@@ -69,6 +69,31 @@ def _snapshot(state: TrainState, epoch: int, rank_states: list) -> dict:
     return payload
 
 
+def _save_to(path: Path, payload: Optional[dict], source: Optional[Path]) -> Path:
+    """Write ``payload`` (or link ``source``, a written ``state.pt``) as
+    ``path/state.pt``: into a temporary directory, then renamed into place,
+    so a reader never sees a half-written snapshot."""
+    tmp = path.with_name(f".{path.name}.{os.getpid()}.tmp")
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    if source is None:
+        torch.save(payload, tmp / STATE_FILE)
+    else:
+        try:
+            os.link(source, tmp / STATE_FILE)
+        except OSError:
+            shutil.copyfile(source, tmp / STATE_FILE)
+    old = None
+    if path.exists():
+        old = path.with_name(f".{path.name}.{os.getpid()}.old")
+        shutil.rmtree(old, ignore_errors=True)
+        os.replace(path, old)
+    os.replace(tmp, path)
+    if old is not None:
+        shutil.rmtree(old)
+    return path / STATE_FILE
+
+
 class CheckpointManager:
     def __init__(self, save_dir: str, run_name: str, save_every_n_epochs: int = 1):
         self.dir = Path(save_dir) / run_name
@@ -89,29 +114,8 @@ class CheckpointManager:
             written = None
             for path in targets:
                 payload = _snapshot(state, epoch, rank_states) if written is None else None
-                written = self._save_to(path, payload, written)
+                written = _save_to(path, payload, written)
         barrier()
-
-    def _save_to(self, path: Path, payload: Optional[dict], source: Optional[Path]) -> Path:
-        tmp = path.with_name(f".{path.name}.{os.getpid()}.tmp")
-        shutil.rmtree(tmp, ignore_errors=True)
-        tmp.mkdir(parents=True)
-        if source is None:
-            torch.save(payload, tmp / STATE_FILE)
-        else:
-            try:
-                os.link(source, tmp / STATE_FILE)
-            except OSError:
-                shutil.copyfile(source, tmp / STATE_FILE)
-        old = None
-        if path.exists():
-            old = path.with_name(f".{path.name}.{os.getpid()}.old")
-            shutil.rmtree(old, ignore_errors=True)
-            os.replace(path, old)
-        os.replace(tmp, path)
-        if old is not None:
-            shutil.rmtree(old)
-        return path / STATE_FILE
 
     def restore(self, path: str, template_state: TrainState):
         """Load a snapshot into ``template_state`` (a fresh ``init_state()``
@@ -156,6 +160,20 @@ def restore_for_eval(path: str, template_state: TrainState) -> TrainState:
     template_state.model.load_state_dict(payload["model"], strict=True)
     template_state.step = int(payload["step"])
     return template_state
+
+
+def save_eval_checkpoint(path: str, model: torch.nn.Module, step: int = 0,
+                         epoch: int = 0) -> Path:
+    """Write a weights-only snapshot of ``model`` (its parameters and
+    buffers, the EMA accumulators among them) with ``step`` and ``epoch`` to
+    ``path/state.pt``, which ``restore_for_eval`` reads (counterpart of
+    ``vqvae_tpu/utils/checkpoint.py:126``; the import CLIs write it). Written
+    under a temporary name and renamed into place, replacing a snapshot
+    there. -> the file."""
+    payload = {"epoch": int(epoch), "step": int(step),
+               "model": {k: v.detach().cpu() for k, v in model.state_dict().items()}}
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    return _save_to(Path(path), payload, None)
 
 
 def latest_checkpoint(save_dir: str, run_name: str) -> Optional[str]:

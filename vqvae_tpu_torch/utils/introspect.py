@@ -1,18 +1,23 @@
-"""Introspection (counterpart of ``vqvae_tpu/utils/introspect.py:37-88``):
+"""Introspection (counterpart of ``vqvae_tpu/utils/introspect.py``):
 
 - ``param_summary``: the parameter and byte table per top-level submodule,
   in the JAX package's layout (the reference's ``print_module_summary``);
 - ``check_replication``: every parameter and buffer bitwise equal to rank
   0's copy (the reference's ``check_ddp_consistency``), run after init and
-  after every restore.
-
-The JAX module's ``trace`` (a profiler context) is not ported here
-(ROADMAP.md queue A, item 11); ``vqvae_tpu_torch.profile_tokenizer`` drives
-``torch.profiler`` for the kernel breakdowns.
+  after every restore;
+- ``trace`` and ``named_scope`` (the reference's ``profiled_function``
+  scopes): a ``torch.profiler`` capture of the CPU and, where a card is
+  visible, its CUDA kernels, written as a Chrome trace (chrome://tracing,
+  Perfetto) into a directory; ``named_scope`` labels a span of it.
+  ``vqvae_tpu_torch.profile_tokenizer`` sums such captures by kernel kind.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
+import time
+from pathlib import Path
 from typing import Iterator, Mapping, Tuple, Union
 
 import torch
@@ -22,6 +27,28 @@ from torch import nn
 from vqvae_tpu_torch.parallel.dist import reduce_device, world
 
 Tree = Union[nn.Module, torch.Tensor, Mapping, None]
+
+named_scope = torch.profiler.record_function
+
+
+@contextlib.contextmanager
+def trace(log_dir: str) -> Iterator[torch.profiler.profile]:
+    """Profile the body: CPU activity and, where a card is visible, CUDA
+    kernels; on exit, also by an exception, the Chrome trace is written to
+    ``log_dir/trace_<pid>_<ns>.json`` (the directory is made). Yields the
+    profiler, whose ``key_averages()`` sums the events."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=activities)
+    prof.start()
+    try:
+        yield prof
+    finally:
+        prof.stop()
+        Path(log_dir).mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(log_dir,
+                                              f"trace_{os.getpid()}_{time.time_ns()}.json"))
 
 
 def _count(tensors) -> Tuple[int, int]:
