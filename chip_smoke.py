@@ -153,7 +153,25 @@ exit and no result line:
    (cap 8192^2); B1's codes in its call at the largest resolution that fit
    against the plain version on the same latents, then B1 timed on them. (e)
    ``bench_infer``'s line, bf16 and fp32. (f) ``misc_ops.grid_sample``'s
-   second-order gradients on the card against the CPU's, float64.
+   second-order gradients on the card against the CPU's, float64. (g) the
+   image of the probe's largest call that fit, its height split over two
+   gloo ranks on the one card (``parallel/spatial.py``; each rank's
+   first-level tensors half the size), against the probe's single-process
+   codes: equal but on rows of B1's near-tie list (none outside the float64
+   near-tie rule), each rank's rows of the probe's image checked, the ranks'
+   ms and peaks beside the probe's, B1 once per call per rank;
+14. tools: (a) the quality-parity chain (``cli.quality_parity --dry-run``)
+   on reference checkpoints of seeded full-width ``gumbel_vqgan.yaml`` and
+   ``entropy_vqvae.yaml`` models with the eval phase's ``test.pack`` and
+   Inception weights: exit 0, every metric line parses, and each run's
+   metrics equal those of ``cli.evaluate`` on a port snapshot of the same
+   weights to every printed digit. (b) ``bench_input`` at 256^2, n 2048,
+   batch 32, 8 workers: the native packed reader, both rates and their
+   ratio to the cli phase's leg (b) step rate. (c) ``bench_breakdown``'s
+   four variants at batch 32, bf16, the D's backward fused: every metric
+   finite, one R1 step in the ``gan_r1`` window (its ms and the others'
+   mean apart), B3 and B4 launched by phase 8's rule. (d)
+   ``profile_tokenizer step gan_r1``: one R1 step in its window.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a visible CUDA device it exits
@@ -169,6 +187,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -182,13 +201,17 @@ import numpy as np
 import torch
 import yaml
 
-from vqvae_tpu_torch import bench_infer, load_config, probe_max_resolution, profile_tokenizer
+from vqvae_tpu_torch import (bench_breakdown, bench_infer, bench_input, load_config,
+                             probe_max_resolution, profile_tokenizer)
+from vqvae_tpu_torch.config import parse_config
 from vqvae_tpu_torch.cli import evaluate as cli_evaluate
 from vqvae_tpu_torch.cli import import_torch_checkpoint as cli_import_torch
+from vqvae_tpu_torch.cli import quality_parity as cli_quality_parity
 from vqvae_tpu_torch.cli import tokenize_dataset as cli_tokenize
 from vqvae_tpu_torch.cli import train as cli_train
 from vqvae_tpu_torch.data.packed import PackedDataset, write_packed
 from vqvae_tpu_torch.eval import fid as fid_module
+from vqvae_tpu_torch.eval import quality_parity
 from vqvae_tpu_torch.eval.inception import make_pool3_extractor
 from vqvae_tpu_torch.models import quantizers
 from vqvae_tpu_torch.models.preprocess import preprocess_batch
@@ -201,9 +224,11 @@ from vqvae_tpu_torch.parallel import dist as pdist
 from vqvae_tpu_torch.parallel import spatial
 from vqvae_tpu_torch.parallel.spatial import make_spatial_apply, shard_rows
 from vqvae_tpu_torch.train import loop
+from vqvae_tpu_torch.train import steps as train_steps
 from vqvae_tpu_torch.train.loop import Trainer
 from vqvae_tpu_torch.train.native_schedulers import build_native_lr_scheduler
-from vqvae_tpu_torch.utils.checkpoint import CheckpointManager, restore_for_eval
+from vqvae_tpu_torch.utils.checkpoint import (CheckpointManager, restore_for_eval,
+                                              save_eval_checkpoint)
 from vqvae_tpu_torch.utils.convert import random_inception_npz
 from vqvae_tpu_torch.utils.introspect import check_replication
 
@@ -269,6 +294,7 @@ SPATIAL_SIZE = 2048         # serve (b): images of 2048^2 ...
 SPATIAL_BATCH = 2           # ... two of them, split by height over 2 ranks
 SPATIAL_ATOL = 1e-4         # serve (b): reconstruct slabs vs one process, on [0, 1] images
 PROBE_START, PROBE_MAX = 1024, 8192   # serve (d): the resolutions the probe tries
+PROBE_CHANNELS = 128        # serve (d), (g): the probe's default width
 BENCH_FP32_STEPS = 4        # serve (e): calls per window of the fp32 bench_infer run
 GRID_SHARE = 1e-10          # serve (f): float64 card vs CPU, share of the largest entry
 # published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): fp32 on the
@@ -1370,9 +1396,10 @@ def _leg_ema(tmp: Path, card: str) -> tuple:
     return b1, b2
 
 
-def _leg_recipe(tmp: Path, card: str) -> None:
+def _leg_recipe(tmp: Path, card: str) -> float:
     """Leg (b): the published one-chip recipe, gumbel_vqgan_1chip.yaml
-    unchanged (cumulative_bs 256 = 8 x 32, pre-GAN), one epoch."""
+    unchanged (cumulative_bs 256 = 8 x 32, pre-GAN), one epoch. -> images/s
+    of steps 2 on, by CUDA events."""
     t = load_config(str(RECIPE_CONFIG)).training
     with _StepSpy() as spy:
         _cli(str(RECIPE_CONFIG), tmp / "data", tmp / "ckpt", "recipe", "--max_epochs", "1")
@@ -1393,6 +1420,7 @@ def _leg_recipe(tmp: Path, card: str) -> None:
           f"chunks of {t.cumulative_bs // t.grad_accum_steps}")
     check(len(times) == CLI_TRAIN_IMAGES // t.cumulative_bs and batch == t.cumulative_bs,
           f"cli (b): one epoch of optimizer steps at cumulative_bs {t.cumulative_bs}")
+    return batch * 1000 / steady
 
 
 def _leg_gan(tmp: Path, card: str, device) -> tuple:
@@ -1430,12 +1458,13 @@ def _leg_gan(tmp: Path, card: str, device) -> tuple:
     return b3, b4
 
 
-def phase_cli(card: str, device, tmp: Path) -> dict:
+def phase_cli(card: str, device, tmp: Path) -> tuple:
     """The port's train CLI in process on the card, in bf16 (its default),
     with torch's default TF32 settings (the CLI's own), on seeded packed data
     written under ``tmp``: legs (a) EMA with accumulation, reinit and resume;
     (b) the published one-chip recipe; (c) the adaptive-lambda GAN with the
-    fused D backward. -> this phase's launches per kernel."""
+    fused D backward. -> (this phase's launches per kernel, leg (b)'s
+    images/s)."""
     size = load_config(str(RECIPE_CONFIG)).image_size
     with _tf32(False, True):
         _write_packs(tmp / "data", CLI_TRAIN_IMAGES, CLI_VAL_IMAGES, size, SEED + 8)
@@ -1449,12 +1478,12 @@ def phase_cli(card: str, device, tmp: Path) -> dict:
         lr.destroy()
         b1, b2 = _leg_ema(tmp, card)
         torch.cuda.empty_cache()
-        _leg_recipe(tmp, card)
+        step_ips = _leg_recipe(tmp, card)
         torch.cuda.empty_cache()
         b3, b4 = _leg_gan(tmp, card, device)
         torch.cuda.empty_cache()
     return {"nearest_codes": b1, "nearest_codes_stats": b2, "blur_t_gate": b3,
-            "skip_fanout_bwd": b4}
+            "skip_fanout_bwd": b4}, step_ips
 
 
 class _CodeSpy:
@@ -1958,6 +1987,8 @@ def _ddp_worker(leg: str, out: Path, argv: list) -> None:
             found = _ddp_gan_run(pdist.default_device())
         elif leg == "spatial":
             found = _spatial_run(pdist.default_device())
+        elif leg == "probe_split":
+            found = _probe_split_run(pdist.default_device(), int(argv[0]))
         elif leg == "eval":
             calls = []
             real_eval = loop.Trainer.eval_step
@@ -2430,12 +2461,13 @@ def _serve_probe(card: str) -> tuple:
     call fails (cap PROBE_MAX); B1's codes in the probe's last call, on the
     latents of the largest resolution that fit, against its plain version;
     then B1 timed on them. -> (B1 launches of the probe, B1's row at that
-    shape, its largest score gap)."""
+    shape, its largest score gap, {"res", "ms", "peak_gb", and on the CPU the
+    call's latents "x", codebook "cb" and codes "codes"} of that call)."""
     torch.cuda.empty_cache()
     _reset_counts()
     with _CodeSpy(nearest_codes) as spy:
         rows = probe_max_resolution.main(["--start", str(PROBE_START), "--max", str(PROBE_MAX),
-                                          "--dtype", "fp32"])
+                                          "--channels", str(PROBE_CHANNELS), "--dtype", "fp32"])
     b1 = nearest_codes.launches
     fit = [r for r in rows if r["ok"]]
     check(len(fit) > 0 and b1 == 2 * len(fit),
@@ -2459,7 +2491,78 @@ def _serve_probe(card: str) -> tuple:
                  f"serve (d): B1 in the probe's {top}^2 call vs plain on its latents "
                  f"({tuple(x.shape)}, {near_ties(x, cb)} near ties rescored)")
     row = _time_b1(x, cb, card) | {"shape": [x.shape[0], cb.shape[0], x.shape[1]]}
-    return b1, row, gap
+    top_call = {"res": top, "ms": fit[-1]["ms"], "peak_gb": fit[-1]["peak_gb"], "x": x.cpu(),
+                "cb": cb.cpu(), "codes": codes.cpu()}
+    return b1, row, gap, top_call
+
+
+def _probe_image(res: int, device) -> torch.Tensor:
+    """The probe's image at ``res``^2, drawn as ``probe_max_resolution`` draws
+    it (the same numbers in every process on this card)."""
+    return torch.rand(1, res, res, 3, device=device, generator=torch.Generator(
+        device=device).manual_seed(probe_max_resolution.SEED + 1))
+
+
+def _probe_split_run(device, res: int) -> dict:
+    """Leg (g) on one rank: the probe's model (fp32, TF32 off) on this rank's
+    rows of the probe's ``res``^2 image, ``get_tokens`` through
+    ``make_spatial_apply``."""
+    model = VQVAE.from_config(
+        parse_config(probe_max_resolution.raw_config(PROBE_START, PROBE_CHANNELS)),
+        device=device, generator=torch.Generator().manual_seed(probe_max_resolution.SEED))
+    x = shard_rows(_probe_image(res, device))
+    _reset_counts()
+    tokens, ms, peak = _timed_call(make_spatial_apply(model, "get_tokens"), x, device)
+    return {"rank": pdist.world()[0], "tokens": tokens.cpu(), "ms": ms, "peak_gib": peak,
+            "peak_gb": torch.cuda.max_memory_allocated(device) / 1e9,
+            "b1": nearest_codes.launches, "slab_sum": float(x.double().sum())}
+
+
+def _serve_probe_split(tmp: Path, card: str, device, top_call: dict) -> int:
+    """Leg (g): the probe's largest image, its height split over two gloo
+    ranks on the one card (each rank's first-level tensors half the size),
+    against the tokens of the probe's single-process call: codes equal but
+    on B1's near-tie rows (none outside the float64 near-tie rule), as in
+    leg (b). -> B1 launches (both ranks')."""
+    res = top_call["res"]
+    torch.cuda.empty_cache()
+    ranks = _torchrun(2, "probe_split", tmp / "serve_g", str(res))
+    image = _probe_image(res, device)
+    half = res // 2
+    for r in ranks:
+        want = float(image[:, r["rank"] * half:(r["rank"] + 1) * half].double().sum())
+        # another image's rows would differ at the first digits
+        check(math.isclose(r["slab_sum"], want, rel_tol=1e-12),
+              f"serve (g): rank {r['rank']} holds its rows of the probe's image")
+    del image
+    split = ranks[0]["tokens"].to(device)
+    check(torch.equal(split, ranks[1]["tokens"].to(device)),
+          "serve (g): both ranks gathered the same tokens")
+    x, cb, single = (top_call[k].to(device) for k in ("x", "cb", "codes"))
+    listed = near_tie_rows(x, cb)
+    n_mis, n_bad, gap = code_mismatches(x, cb, split.reshape(-1), single)
+    off_list = int((~torch.isin((split.reshape(-1) != single).nonzero().flatten(),
+                                listed)).sum())
+    print(f"serve (g) [{card}]: get_tokens of the probe's {res}^2 image, fp32, TF32 off, "
+          f"split by height over 2 gloo ranks on one card vs the probe's single process: "
+          f"{n_mis} of {single.numel()} codes differ ({listed.numel()} rows on B1's near-tie "
+          f"list; {off_list} mismatches off it, {n_bad} outside the float64 near-tie rule, "
+          f"max score gap {gap:.3e})")
+    for r in ranks:
+        print(f"time [{card}]: serve (g) rank {r['rank']} of 2 gloo ranks on one card, "
+              f"1 x {half} x {res} rows, fp32: get_tokens {r['ms']:.1f} ms, peak "
+              f"{r['peak_gib']:.2f} GiB above the weights and image ({r['peak_gb']:.2f} GB "
+              f"allocated in all); B1 launched {r['b1']} times")
+    print(f"time [{card}]: serve (g) one process (the probe, leg (d)), 1 x {res}^2, fp32: "
+          f"get_tokens {top_call['ms']:.1f} ms, peak {top_call['peak_gb']:.2f} GB allocated "
+          f"in all; ranks' ms / one process's: "
+          + ", ".join(f"{r['ms'] / top_call['ms']:.3f}" for r in ranks))
+    check(off_list == 0 and n_bad == 0,
+          f"serve (g): the probe's {res}^2 tokens equal the split run's but on B1's near-tie "
+          f"rows")
+    for r in ranks:
+        check(r["b1"] == 2, f"serve (g): rank {r['rank']}: B1 once per call ({r['b1']} for 2)")
+    return sum(r["b1"] for r in ranks)
 
 
 def _serve_bench(card: str) -> dict:
@@ -2505,25 +2608,171 @@ def phase_serve(card: str, device, tmp: Path) -> tuple:
     2 gloo ranks against one process; (c) the token CLI's ``--spatial`` at
     world 1 on NCCL; (d) the single-card resolution ceiling and B1 on its
     latents; (e) ``bench_infer``; (f) ``grid_sample``'s second order on the
-    card. -> (B1 launches, B1's row at the probe's shape, its score gap)."""
+    card; (g) the probe's largest image split over 2 gloo ranks against its
+    single-process tokens. -> (B1 launches, B1's row at the probe's shape,
+    its score gap)."""
     torch.cuda.empty_cache()
-    launches, b1_large, gap = 0, None, 0.0
+    launches, b1_large, gap, top_call = 0, None, 0.0, None
     for leg, fn in (("a", lambda: _serve_import(tmp, card, device)),
                     ("b", lambda: _serve_spatial(tmp, card, device)),
                     ("c", lambda: _serve_tokenize_nccl(tmp, card)),
                     ("d", lambda: _serve_probe(card)),
                     ("e", lambda: _serve_bench(card)),
-                    ("f", lambda: _serve_grid_sample(card, device))):
+                    ("f", lambda: _serve_grid_sample(card, device)),
+                    ("g", lambda: _serve_probe_split(tmp, card, device, top_call))):
         t0 = time.perf_counter()
         found = fn()
         if leg == "d":
-            found, b1_large, gap = found
+            found, b1_large, gap, top_call = found
         n = found if isinstance(found, int) else 0
         launches += n
         torch.cuda.empty_cache()
         print(f"time [{card}]: serve ({leg}) took {time.perf_counter() - t0:.1f} s; B1 "
               f"launches {n}")
     return launches, b1_large, gap
+
+
+def _tools_chain(tmp: Path, card: str, device) -> None:
+    """Tools (a): the quality-parity chain's dry run on reference checkpoints
+    of seeded full-width ``gumbel_vqgan.yaml`` and ``entropy_vqvae.yaml``
+    models, the eval phase's test.pack and Inception weights: every metric
+    line parses, and each run's metrics equal, to every printed digit,
+    those of ``cli.evaluate`` on a port snapshot of the same weights."""
+    root = tmp / "tools_a"
+    fixdir = root / "fixtures"
+    weights = tmp / "inception_fid.npz"
+    fixdir.mkdir(parents=True)
+    shutil.copyfile(weights, fixdir / "inception_fid.npz")
+    for i, config in enumerate((GAN_CONFIG, ENTROPY_CONFIG)):
+        model = VQVAE.from_config(load_config(str(config)), device=device,
+                                  generator=torch.Generator().manual_seed(SEED + 30 + i))
+        (fixdir / config.stem).mkdir()
+        _lightning_ckpt(model, fixdir / config.stem / "model.ckpt")
+        shutil.copyfile(config, fixdir / config.stem / "conf.yaml")
+        save_eval_checkpoint(str(root / "direct" / config.stem), model)
+        del model
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    code = cli_quality_parity.main(["--dry-run", str(fixdir), "--cache", str(root / "cache"),
+                                    "--dataset", str(tmp / "data"), "--dataloader", "packed"])
+    t_chain = time.perf_counter() - t0
+    check(code == 0, f"tools (a): the chain's dry run exits 0 ({code})")
+    batch = cli_quality_parity.parse_args([]).batch
+    for config in (GAN_CONFIG, ENTROPY_CONFIG):
+        name = f"{config.stem}_model"
+        log = root / "cache" / "quality_parity_torch" / f"eval_{name}.txt"
+        logged = quality_parity.parse_metrics(log.read_text())
+        with mock.patch.dict(os.environ, {"VQVAE_TPU_INCEPTION_WEIGHTS": str(weights)}):
+            direct = cli_evaluate.main(["--params_file", str(config), "--dataset_path",
+                                        str(tmp / "data"), "--dataloader", "packed",
+                                        "--batch_size", str(batch), "--seed", "42",
+                                        "--loading_path", str(root / "direct" / config.stem)])
+        printed = {k: float(f"{v:.6f}") for k, v in direct.items()}
+        print(f"tools (a) [{card}]: {name}: the chain's log "
+              + ", ".join(f"{k} {v}" for k, v in logged.items())
+              + f"; cli.evaluate on a port snapshot of the same weights: "
+              + ("equal to every printed digit" if logged == printed else f"{printed}"))
+        check(set(logged) == set(quality_parity.PUBLISHED["gumbel"]),
+              f"tools (a) {name}: every metric line, rFID included, parses")
+        check(logged == printed, f"tools (a) {name}: the chain's metrics are cli.evaluate's")
+    print(f"time [{card}]: tools (a) the chain's dry run, 2 runs of {EVAL_IMAGES} images at "
+          f"batch {batch}: {t_chain:.1f} s")
+
+
+def _tools_input(tmp: Path, card: str, step_ips: float) -> None:
+    """Tools (b): ``bench_input`` at its defaults (256^2, n 2048, batch 32, 8
+    workers): the native packed reader; both rates beside the cli phase's
+    leg (b) step rate of this run."""
+    found = bench_input.main(["--tmp", str(tmp / "tools_b")])
+    check(found["native"], "tools (b): the packed reader is the native one")
+    check(found["packed_images"] == 2048 and found["folder_images"] == 512,
+          "tools (b): each loader's epoch counted every image (the pack's 2048, the "
+          "folder's 512)")
+    print(f"time [{card}]: tools (b) bench_input 256^2, n 2048, batch 32, 8 workers (host "
+          f"clock): packed reader {found['packed']:.1f} images/s, image folder "
+          f"{found['folder']:.1f} images/s; over the cli (b) train step's {step_ips:.1f} "
+          f"images/s in this run (CUDA events): packed {found['packed'] / step_ips:.2f}x, "
+          f"folder {found['folder'] / step_ips:.2f}x")
+
+
+class _R1Spy:
+    """While entered, records ``(gan, r1)`` of every ``steps.train_step`` call."""
+
+    def __enter__(self):
+        self.calls = []
+        real = train_steps.train_step
+
+        def train_step(*args, **kwargs):
+            self.calls.append((kwargs["gan"], kwargs["r1"]))
+            return real(*args, **kwargs)
+
+        self._patch = mock.patch.object(train_steps, "train_step", train_step)
+        self._patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._patch.stop()
+
+
+def _tools_breakdown(card: str) -> tuple:
+    """Tools (c): ``bench_breakdown``, the four variants at batch 32 in bf16,
+    the D's backward fused: every metric finite, exactly one R1 step in the
+    ``gan_r1`` window, B3 and B4 launched by phase 8's rule (per GAN step 3
+    per D block, 2 on an R1 step). -> (B3, B4 launches)."""
+    size = bench_breakdown.make_cfg(256, 128, **bench_breakdown.VARIANTS["gan"]).image_size
+    n_blocks = len(range(int(math.log2(size)), 2, -1))
+    _reset_counts()
+    with _R1Spy() as spy:
+        rec = bench_breakdown.main(["--fused_dbwd", "--fused_skip"])
+    torch.cuda.synchronize()
+    b3, b4 = _dbwd_counts()
+    want = sum(2 * n_blocks if r1 else 3 * n_blocks for gan, r1 in spy.calls if gan)
+    for name in bench_breakdown.VARIANTS:
+        res = rec[name]
+        check(res["finite"], f"tools (c) {name}: every metric of every timed step finite")
+        print(f"time [{card}]: tools (c) bench_breakdown {name}, bf16 batch {rec['batch']}, "
+              f"fused D backward: {res['ms/step']:.1f} ms/step, {res['img/s']:.1f} images/s"
+              + (f"; R1 step {res['r1_ms']:.1f} ms, non-R1 steps' mean {res['non_r1_ms']:.1f} "
+                 f"ms (window step {res['r1'].index(True) + 1} of {len(res['r1'])})"
+                 if "r1_ms" in res else ""))
+    check(sum(rec["gan_r1"]["r1"]) == 1, "tools (c): the gan_r1 window held one R1 step")
+    check(sum(r for _, r in spy.calls) == 2, "tools (c): two R1 steps in all (host steps 0, 16)")
+    print(f"tools (c): B3 launched {b3} times, B4 {b4} times (expected {want} each: "
+          f"{3 * n_blocks} per non-R1 GAN step, {2 * n_blocks} per R1 step)")
+    check(b3 == b4 == want, "tools (c): B3 and B4 launched by the rule of phase 8")
+    return b3, b4
+
+
+def _tools_profile(card: str) -> None:
+    """Tools (d): ``profile_tokenizer step gan_r1``: its window held exactly
+    one R1 step."""
+    with _R1Spy() as spy:
+        window = profile_tokenizer.main(["step", "gan_r1"])
+    calls = profile_tokenizer.CALLS
+    seen = [r for _, r in spy.calls[-calls:]]
+    print(f"tools (d) [{card}]: profile_tokenizer step gan_r1: R1 on window call(s) "
+          f"{[i + 1 for i, r in enumerate(seen) if r]} of {calls}")
+    check(seen == window and sum(seen) == 1,
+          "tools (d): the profiled window held exactly one R1 step")
+
+
+def phase_tools(card: str, device, tmp: Path, step_ips: float) -> dict:
+    """The three tools on the card: (a) the quality-parity chain's dry run;
+    (b) the loaders' images/s; (c) the train step's decomposition; (d) the
+    ``step`` profile of ``gan_r1``. -> B3 / B4 launches."""
+    torch.cuda.empty_cache()
+    launches = {"blur_t_gate": 0, "skip_fanout_bwd": 0}
+    for leg, fn in (("a", lambda: _tools_chain(tmp, card, device)),
+                    ("b", lambda: _tools_input(tmp, card, step_ips)),
+                    ("c", lambda: _tools_breakdown(card)),
+                    ("d", lambda: _tools_profile(card))):
+        t0 = time.perf_counter()
+        found = fn()
+        if leg == "c":
+            launches = {"blur_t_gate": found[0], "skip_fanout_bwd": found[1]}
+        torch.cuda.empty_cache()
+        print(f"time [{card}]: tools ({leg}) took {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 def _record(name, source, replaces, launches, max_abs_err, shape, t) -> dict:
@@ -2566,7 +2815,7 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as name:
         tmp = Path(name)
         t_cli = time.perf_counter()
-        cli = phase_cli(card, device, tmp)
+        cli, step_ips = phase_cli(card, device, tmp)
         print(f"time [{card}]: cli: the phase took {time.perf_counter() - t_cli:.1f} s; "
               f"launches {cli}")
         t_eval = time.perf_counter()
@@ -2582,6 +2831,10 @@ def main() -> None:
         b1_serve, b1_large, large_gap = phase_serve(card, device, tmp)
         print(f"time [{card}]: serve: the phase took {time.perf_counter() - t_serve:.1f} s; "
               f"nearest_codes launches, every rank's {b1_serve}")
+        t_tools = time.perf_counter()
+        tools = phase_tools(card, device, tmp, step_ips)
+        print(f"time [{card}]: tools: the phase took {time.perf_counter() - t_tools:.1f} s; "
+              f"launches {tools}")
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [
         # launches: the tokenizer path's, the training path's, the train
@@ -2615,22 +2868,24 @@ def main() -> None:
                 stats_err, STATS_SHAPES[0], b2) | _scan_bound(b2)
         | {"cli_launches": cli["nearest_codes_stats"],
            "ddp_launches": ddp.get("nearest_codes_stats", 0)},
-        # launches: the GAN path's 8 train steps and the CLI's leg (c); max_abs_err: the largest
+        # launches: the GAN path's 8 train steps, the CLI's leg (c), the ddp
+        # phase's and the tools phase's bench_breakdown (tools_launches); max_abs_err: the largest
         # |kernel - plain| over every compared shape, fp32 and bf16 (bf16 is
         # one bf16 ulp); times at the first block's shape in bf16, the
         # training compute dtype
         _record("blur_t_gate", "vqvae_tpu_torch/csrc/fused_dbwd.cu",
                 "vqvae_tpu/ops/fused_dbwd.py:220",
-                b3_gan + cli["blur_t_gate"] + ddp.get("blur_t_gate", 0), b3_err, b256,
-                dbwd[("B3", torch.bfloat16, b256)])
+                b3_gan + cli["blur_t_gate"] + ddp.get("blur_t_gate", 0) + tools["blur_t_gate"],
+                b3_err, b256, dbwd[("B3", torch.bfloat16, b256)])
         | {"dtype": "bfloat16", "cli_launches": cli["blur_t_gate"],
-           "ddp_launches": ddp.get("blur_t_gate", 0)},
+           "ddp_launches": ddp.get("blur_t_gate", 0), "tools_launches": tools["blur_t_gate"]},
         _record("skip_fanout_bwd", "vqvae_tpu_torch/csrc/fused_dbwd.cu",
                 "vqvae_tpu/ops/fused_dbwd.py:386",
-                b4_gan + cli["skip_fanout_bwd"] + ddp.get("skip_fanout_bwd", 0), b4_err, b256,
-                dbwd[("B4", torch.bfloat16, b256)])
+                b4_gan + cli["skip_fanout_bwd"] + ddp.get("skip_fanout_bwd", 0)
+                + tools["skip_fanout_bwd"], b4_err, b256, dbwd[("B4", torch.bfloat16, b256)])
         | {"dtype": "bfloat16", "cli_launches": cli["skip_fanout_bwd"],
-           "ddp_launches": ddp.get("skip_fanout_bwd", 0)},
+           "ddp_launches": ddp.get("skip_fanout_bwd", 0),
+           "tools_launches": tools["skip_fanout_bwd"]},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

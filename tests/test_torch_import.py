@@ -42,7 +42,9 @@ assert {"vqvae_tpu_torch.cli.train", "vqvae_tpu_torch.cli.create_packed_dataset"
         "vqvae_tpu_torch.parallel.spatial", "vqvae_tpu_torch.utils.torch_import",
         "vqvae_tpu_torch.cli.import_torch_checkpoint", "vqvae_tpu_torch.cli.import_jax_checkpoint",
         "vqvae_tpu_torch.ops.misc_ops", "vqvae_tpu_torch.bench_infer",
-        "vqvae_tpu_torch.probe_max_resolution"} <= set(names)
+        "vqvae_tpu_torch.probe_max_resolution", "vqvae_tpu_torch.eval.quality_parity",
+        "vqvae_tpu_torch.cli.quality_parity", "vqvae_tpu_torch.bench_input",
+        "vqvae_tpu_torch.bench_breakdown"} <= set(names)
 from vqvae_tpu_torch.models.lpips import LPIPS
 for net in ("alex", "squeeze"):
     LPIPS(net, device="cpu")
@@ -57,7 +59,7 @@ def test_import_loads_no_jax():
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n_modules, loaded = out.stdout.split(maxsplit=1)
-    assert int(n_modules) >= 54
+    assert int(n_modules) >= 58
     assert loaded.strip() == "[]"
 
 
@@ -237,6 +239,22 @@ def test_eval_entry_points_ask_for_the_card_by_default(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="--device cpu"):
         cli_tokenize.main(["--params_file", "x", "--loading_path", "x", "--dataset_path", "x",
                            "--output_folder", str(tmp_path)])
+
+
+def test_tool_entry_points_ask_for_the_card_by_default():
+    """The quality-parity chain and the step decomposition default to
+    ``--device cuda``, and the decomposition raises without a card; the
+    input bench touches no device."""
+    from vqvae_tpu_torch import bench_breakdown, bench_input
+    from vqvae_tpu_torch.cli import quality_parity
+
+    assert quality_parity.parse_args([]).device == "cuda"
+    assert bench_breakdown.parse_args([]).device == "cuda"
+    assert "device" not in vars(bench_input.parse_args([]))
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        bench_breakdown.main([])
 
 
 _C_TYPES = {"double": ctypes.c_double, "void*": ctypes.c_void_p, "const char*": ctypes.c_char_p,

@@ -2,6 +2,7 @@
 GAN training step goes, on one CUDA card.
 
     python -m vqvae_tpu_torch.profile_tokenizer [all | tokenizer | ema | gan]
+    python -m vqvae_tpu_torch.profile_tokenizer step [mse | lpips | gan | gan_r1]
 
 Builds ``VQVAE`` from ``example_confs/standard_vqvae.yaml`` and ``Trainer``s
 from ``example_confs/ema_vqvae.yaml`` and ``example_confs/gumbel_vqgan.yaml``
@@ -29,6 +30,15 @@ forward and backward passes of a non-R1 step. Per call it prints:
 
 Times are per call (window / ``CALLS``). The first line is the card's
 name and power limit from ``nvidia-smi``.
+
+The ``step`` part (counterpart of ``tools/profile_step.py``) profiles the
+train step of one variant of ``bench_breakdown`` (default ``gan_r1``) at
+batch ``BATCH`` in bf16, built by its ``make_cfg``, with the discriminator's
+plain backward (the JAX Trainer's default), through the same
+``profile_call`` / ``report``. R1 runs when the Trainer's host step is a
+multiple of ``r1_reg_every``; ``step_window_start`` sets the host step so
+that the first step of the window is one (the JAX tool profiles host steps
+3-6, which hold no R1 step), and the part prints which window step took R1.
 """
 
 from __future__ import annotations
@@ -181,14 +191,57 @@ def profile_gan(device, card: str) -> None:
         torch.cuda.empty_cache()
 
 
-def main() -> None:
+def step_window_start(r1_every: int) -> int:
+    """The host step to set before ``profile_call``'s ``WARMUP`` calls so that
+    the first call of its window is an R1 step."""
+    return r1_every - WARMUP % r1_every
+
+
+def profile_step(variant: str, device, card: str) -> list:
+    """The train step of ``bench_breakdown``'s ``variant`` (bf16, batch
+    ``BATCH``, plain D backward), profiled. -> whether each call of the
+    window took R1."""
+    from vqvae_tpu_torch.bench_breakdown import VARIANTS, make_cfg
+    from vqvae_tpu_torch.train.loop import Trainer
+
+    cfg = make_cfg(256, 128, **VARIANTS[variant])
+    trainer = Trainer(cfg=cfg, learning_rate=1e-4, seed=SEED, steps_per_epoch=1000,
+                      compute_dtype=torch.bfloat16, device=device)
+    state = trainer.init_state()
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    size = cfg.image_size
+    batch = {"image": torch.randint(0, 256, (BATCH, size, size, 3), dtype=torch.uint8,
+                                    device=device, generator=gen)}
+    if cfg.use_adversarial and cfg.loss.adversarial.r1_reg_weight is not None:
+        trainer.host_step = step_window_start(cfg.loss.adversarial.r1_reg_every)
+    took_r1 = []
+
+    def step():
+        took_r1.append(trainer.r1_due(0))
+        trainer.train_step(state, batch, epoch=0)
+
+    timings = profile_call(step)
+    window = took_r1[WARMUP:]
+    report(f"train_step {variant} bf16 batch {BATCH}, plain D backward; R1 on window call"
+           f"{'s' if sum(window) != 1 else ''} "
+           + (", ".join(str(i + 1) for i, r in enumerate(window) if r) or "none")
+           + f" of {CALLS}", *timings, card)
+    del trainer, state
+    torch.cuda.empty_cache()
+    return window
+
+
+def main(argv=None):
+    """Runs the part ``argv`` names; -> the ``step`` part's window R1 flags."""
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         sys.exit("profile_tokenizer: no CUDA device is visible")
-    what = sys.argv[1] if len(sys.argv) > 1 else "all"
-    if what not in ("all", "tokenizer", "ema", "gan"):
-        sys.exit(f"profile_tokenizer: unknown part {what!r}: all | tokenizer | ema | gan")
+    what = argv[0] if argv else "all"
+    if what not in ("all", "tokenizer", "ema", "gan", "step"):
+        sys.exit(f"profile_tokenizer: unknown part {what!r}: all | tokenizer | ema | gan | step")
 
     from vqvae_tpu_torch import VQVAE, load_config
+    from vqvae_tpu_torch.bench_breakdown import VARIANTS
     from vqvae_tpu_torch.train.loop import Trainer
 
     card = subprocess.run(
@@ -198,6 +251,11 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
+    if what == "step":
+        variant = argv[1] if len(argv) > 1 else "gan_r1"
+        if variant not in VARIANTS:
+            sys.exit(f"profile_tokenizer: unknown variant {variant!r}: {' | '.join(VARIANTS)}")
+        return profile_step(variant, device, card)
     if what in ("all", "gan"):
         profile_gan(device, card)
     if what == "gan":

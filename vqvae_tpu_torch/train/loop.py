@@ -148,6 +148,13 @@ class Trainer:
     def gan_active(self, epoch: int) -> bool:
         return self.cfg.use_adversarial and epoch >= self.cfg.loss.adversarial.start_epoch
 
+    def r1_due(self, epoch: int) -> bool:
+        """Whether the next ``train_step`` at ``epoch`` takes the R1 penalty."""
+        if not self.gan_active(epoch):
+            return False
+        adv = self.cfg.loss.adversarial
+        return adv.r1_reg_weight is not None and self.host_step % adv.r1_reg_every == 0
+
     def sync_host_step(self, state: TrainState) -> None:
         """Align the host step counter with a (restored) state."""
         self.host_step = state.step
@@ -171,9 +178,7 @@ class Trainer:
         """-> (state, metrics); ``batch["image"]`` is a [0,1] float or uint8
         NHWC batch. The state is updated in place and returned."""
         gan = self.gan_active(epoch)
-        adv = self.cfg.loss.adversarial if gan else None
-        r1 = (gan and adv.r1_reg_weight is not None
-              and self.host_step % adv.r1_reg_every == 0)
+        r1 = self.r1_due(epoch)
         self.host_step += 1
         temp, kl_cost = self._gumbel(state.step)
         metrics = steps.train_step(
