@@ -171,7 +171,27 @@ exit and no result line:
    four variants at batch 32, bf16, the D's backward fused: every metric
    finite, one R1 step in the ``gan_r1`` window (its ms and the others'
    mean apart), B3 and B4 launched by phase 8's rule. (d)
-   ``profile_tokenizer step gan_r1``: one R1 step in its window.
+   ``profile_tokenizer step gan_r1``: one R1 step in its window;
+15. remat: rematerialization (``Trainer(remat=...)``: every autoencoder
+   ``ResBlock`` and D block checkpointed) and the auto-remat gate, at full
+   width, bf16, one micro-batch of ``REMAT_BATCH`` per step. (a)
+   ``gumbel_vqgan_1chip.yaml`` with the GAN active and the D's backward
+   fused, cuDNN deterministic, 4 steps (R1 on the first) remat off, then on,
+   from one seed and batch: the first two steps' autoencoder and D
+   gradients equal (0, or within ``GRAD_SHARE``), B3 / B4 launched as often;
+   ms per step, the R1 step's, the peak. (b) ``ema_vqvae.yaml`` (B2) and
+   ``standard_vqvae.yaml`` (B1), 2 steps each way: the codes, the EMA
+   buffers and the launches equal. (c) calibration and capacity, non-R1
+   steps: the peak at micro-batches 32 and 64 with remat off, pre-GAN and
+   GAN, as bytes per pixel x base channel against the JAX package's 40 and
+   ``loop.ACTIVATION_BYTES_PER_PIXEL_CHANNEL`` (within 1.5x of the latter);
+   the largest GAN micro-batch (steps of 32, at most 256) that completes a
+   step with remat off, then on, an out-of-memory failure printed as the
+   measurement: remat must raise it. (d) the train CLI in process on that
+   config at ``grad_accum_steps 1`` with the smallest per-card batch whose
+   estimate exceeds 75% of the card (two optimizer steps, pre-GAN, packed
+   data written here): the Trainer decides remat on by itself, and
+   ``check_remat_gate``'s reading of the first step is printed.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a visible CUDA device it exits
@@ -182,6 +202,7 @@ from __future__ import annotations
 
 import collections
 import copy
+import dataclasses
 import functools
 import json
 import math
@@ -295,6 +316,12 @@ SPATIAL_BATCH = 2           # ... two of them, split by height over 2 ranks
 SPATIAL_ATOL = 1e-4         # serve (b): reconstruct slabs vs one process, on [0, 1] images
 PROBE_START, PROBE_MAX = 1024, 8192   # serve (d): the resolutions the probe tries
 PROBE_CHANNELS = 128        # serve (d), (g): the probe's default width
+REMAT_BATCH = 32            # remat (a), (b): the micro-batch of each step
+REMAT_STEPS = 4             # remat (a): host steps 0 (R1) to 3 per leg
+REMAT_CALIBRATION = (32, 64)  # remat (c): the micro-batches of the memory slope
+REMAT_STRIDE = 32           # remat (c): the capacity search's step, (d)'s batch grid
+REMAT_MAX_BATCH = 256       # remat (c): where the search stops
+REMAT_CLI_VAL_IMAGES = 8    # remat (d)
 BENCH_FP32_STEPS = 4        # serve (e): calls per window of the fp32 bench_infer run
 GRID_SHARE = 1e-10          # serve (f): float64 card vs CPU, share of the largest entry
 # published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): fp32 on the
@@ -639,7 +666,7 @@ def phase_train(cfg, device, card: str):
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).removeprefix("torch.")
         trainer = Trainer(cfg, learning_rate=lr, seed=SEED, steps_per_epoch=STEPS_PER_EPOCH,
-                          compute_dtype=dtype, device=device)
+                          compute_dtype=dtype, device=device, remat=False)
         state = trainer.init_state()
         first = _FirstQuantizerCall(state.model.quantizer) if dtype == torch.float32 else None
         history = []
@@ -1003,7 +1030,7 @@ def _fused_ab(cfg, batch, device, what: str) -> None:
     for fused in (True, False):
         trainer = Trainer(cfg, learning_rate=cfg.training.scaled_lr(), seed=SEED,
                           steps_per_epoch=STEPS_PER_EPOCH, device=device, fused_dbwd=fused,
-                          fused_skip=fused)
+                          fused_skip=fused, remat=False)
         state = trainer.init_state()
         trainer.host_step = 1                      # not an R1 step
         before = _dbwd_counts()
@@ -1054,7 +1081,8 @@ def phase_gan(cfg, device, card: str):
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).removeprefix("torch.")
         trainer = Trainer(cfg, learning_rate=lr, seed=SEED, steps_per_epoch=STEPS_PER_EPOCH,
-                          compute_dtype=dtype, device=device, fused_dbwd=True, fused_skip=True)
+                          compute_dtype=dtype, device=device, fused_dbwd=True, fused_skip=True,
+                          remat=False)
         state = trainer.init_state()
         check(trainer.gan_active(epoch) and not trainer.gan_active(epoch - 1),
               f"gan slice {name}: the GAN starts at epoch {epoch}")
@@ -1734,7 +1762,8 @@ def _entropy_steps(card: str, device) -> None:
     for dtype, n_steps in ENTROPY_STEPS:
         name = str(dtype).removeprefix("torch.")
         trainer = Trainer(cfg, learning_rate=cfg.training.scaled_lr(), seed=SEED,
-                          steps_per_epoch=STEPS_PER_EPOCH, compute_dtype=dtype, device=device)
+                          steps_per_epoch=STEPS_PER_EPOCH, compute_dtype=dtype, device=device,
+                          remat=False)
         state = trainer.init_state()
         spy = _QuantizerCalls(state.model.quantizer)
         _reset_counts()
@@ -1880,7 +1909,7 @@ def _ddp_ema_run(device) -> dict:
     per = DDP_BATCH // world
     trainer = Trainer(cfg, learning_rate=cfg.training.scaled_lr(), seed=SEED,
                       steps_per_epoch=STEPS_PER_EPOCH, compute_dtype=torch.float32,
-                      augment=False, device=device)
+                      augment=False, device=device, remat=False)
     state = trainer.init_state()
     replicas = {"model": state.model, "usage_count": state.usage_count}
     check_replication(replicas)
@@ -1914,7 +1943,7 @@ def _ddp_gan_run(device) -> dict:
     epoch = cfg.loss.adversarial.start_epoch
     trainer = Trainer(cfg, learning_rate=cfg.training.scaled_lr(), seed=SEED,
                       steps_per_epoch=STEPS_PER_EPOCH, compute_dtype=torch.bfloat16,
-                      device=device, fused_dbwd=True, fused_skip=True)
+                      device=device, fused_dbwd=True, fused_skip=True, remat=False)
     state = trainer.init_state()
     replicas = {"model": state.model, "disc": state.disc, "usage_count": state.usage_count}
     check_replication(replicas)
@@ -2211,7 +2240,7 @@ def _lpips_alex_leg(tmp: Path, card: str, device) -> dict:
     images = torch.rand(TRAIN_BATCH, size, size, 3, device=device, generator=gen)
     trainer = Trainer(cfg, learning_rate=cfg.training.scaled_lr(), seed=SEED,
                       steps_per_epoch=STEPS_PER_EPOCH, compute_dtype=torch.bfloat16,
-                      device=device)
+                      device=device, remat=False)
     check(type(trainer.losses.lpips.net).__name__ == "AlexNetFeatures",
           "lpips-alex: a loss: block without a GAN takes LPIPS-AlexNet")
     state = trainer.init_state()
@@ -2775,6 +2804,401 @@ def phase_tools(card: str, device, tmp: Path, step_ips: float) -> dict:
     return launches
 
 
+def _one_step_config(path: Path, batch: int):
+    """``path``'s config with every optimizer step one micro-batch of ``batch``."""
+    cfg = load_config(str(path))
+    return dataclasses.replace(cfg, training=dataclasses.replace(
+        cfg.training, cumulative_bs=batch, grad_accum_steps=1))
+
+
+@contextmanager
+def _deterministic_cudnn():
+    """cuDNN's deterministic algorithms while it is entered: two runs of one
+    computation give the same bits, so remat's recomputation is all that
+    differs between them."""
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+
+class _TrainCodes:
+    """Forward hook on a quantizer: the codes of every ``train=True`` call,
+    on the host."""
+
+    def __init__(self, quantizer):
+        self.codes = []
+        self._handle = quantizer.register_forward_hook(self._post, with_kwargs=True)
+
+    def _post(self, module, args, kwargs, out):
+        if kwargs.get("train"):
+            self.codes.append(out[1].reshape(-1).cpu())
+
+    def remove(self):
+        self._handle.remove()
+
+
+def _launches() -> dict:
+    return {"nearest_codes": nearest_codes.launches,
+            "nearest_codes_stats": nearest_codes_stats.launches,
+            "blur_t_gate": fused_dbwd.blur_t_gate.launches,
+            "skip_fanout_bwd": fused_dbwd.skip_fanout_bwd.launches}
+
+
+def _since(before: dict) -> dict:
+    return {k: v - before[k] for k, v in _launches().items()}
+
+
+def _host_grads(module) -> dict:
+    return {k: p.grad.detach().float().cpu() for k, p in module.named_parameters()
+            if p.grad is not None}
+
+
+def _remat_gan(card: str, device) -> dict:
+    """Remat (a): ``gumbel_vqgan_1chip.yaml`` at one micro-batch of
+    ``REMAT_BATCH`` per step, bf16, the GAN active, the D's backward fused,
+    cuDNN deterministic: ``REMAT_STEPS`` steps from one seed and batch with
+    remat off, then on (host step 0 takes R1). Each of the first two steps'
+    autoencoder and D gradients agree (0, or within ``GRAD_SHARE`` of each
+    tensor's largest entry), so do the metrics, and B3 / B4 launch as often.
+    -> this leg's launches."""
+    cfg = _one_step_config(RECIPE_CONFIG, REMAT_BATCH)
+    epoch = cfg.loss.adversarial.start_epoch
+    size = cfg.image_size
+    gen = torch.Generator(device=device).manual_seed(SEED + 40)
+    batch = {"image": torch.rand(REMAT_BATCH, size, size, 3, device=device, generator=gen)}
+    runs, launches = {}, collections.Counter()
+    with _deterministic_cudnn():
+        for remat in (False, True):
+            trainer = Trainer(cfg, learning_rate=cfg.training.scaled_lr(), seed=SEED,
+                              steps_per_epoch=STEPS_PER_EPOCH, compute_dtype=torch.bfloat16,
+                              device=device, fused_dbwd=True, fused_skip=True, remat=remat)
+            state = trainer.init_state()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            run = {"ms": [], "r1": [], "grads": [], "metrics": [], "launches": []}
+            for i in range(REMAT_STEPS):
+                run["r1"].append(trainer.r1_due(epoch))
+                before = _launches()
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                _, metrics = trainer.train_step(state, batch, epoch=epoch)
+                end.record()
+                end.synchronize()
+                run["ms"].append(start.elapsed_time(end))
+                run["launches"].append(_since(before))
+                run["metrics"].append({k: float(v) for k, v in metrics.items()})
+                if i < 2:
+                    run["grads"].append((_host_grads(state.model), _host_grads(state.disc)))
+            run["peak"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            for step in run["launches"]:
+                launches.update(step)
+            runs[remat] = run
+            del trainer, state
+            torch.cuda.empty_cache()
+    off, on = runs[False], runs[True]
+    check(off["r1"] == on["r1"] == [True] + [False] * (REMAT_STEPS - 1),
+          f"remat (a): R1 on host step 0 only ({off['r1']}, {on['r1']})")
+    worst = []
+    for i, ((ae_on, d_on), (ae_off, d_off)) in enumerate(zip(on["grads"], off["grads"])):
+        check(set(ae_on) == set(ae_off) and set(d_on) == set(d_off),
+              f"remat (a) step {i}: the same parameters take gradients")
+        for what, got, want in (("autoencoder", ae_on, ae_off), ("D", d_on, d_off)):
+            diff = max(float((got[k] - want[k]).abs().max()) for k in want)
+            shares = _grad_shares(got, want)
+            name = max(shares, key=shares.get)
+            worst.append((i, what, diff, shares[name], name))
+    for i, what, diff, share, name in worst:
+        print(f"remat (a) [{card}]: step {i} ({'R1' if i == 0 else 'non-R1'}) {what} gradients, "
+              f"remat on vs off: largest |difference| {diff:.3e}, worst share {share:.3e} "
+              f"({name}); limit 0 or {GRAD_SHARE} of each tensor's largest entry")
+    check(all(diff == 0 or share <= GRAD_SHARE for _, _, diff, share, _ in worst),
+          "remat (a): the gradients with remat equal those without")
+    check(all(math.isfinite(v) for run in (off, on) for m in run["metrics"] for v in m.values()),
+          "remat (a): every metric finite")
+    loss_gap = max(abs(a["loss"] - b["loss"]) for a, b in zip(on["metrics"], off["metrics"]))
+    dbwd_off = [(s["blur_t_gate"], s["skip_fanout_bwd"]) for s in off["launches"]]
+    dbwd_on = [(s["blur_t_gate"], s["skip_fanout_bwd"]) for s in on["launches"]]
+    for name, run in (("off", off), ("on", on)):
+        plain = run["ms"][2:]
+        print(f"time [{card}]: remat (a) {name}: {RECIPE_CONFIG.name} GAN step, bf16, micro-"
+              f"batch {REMAT_BATCH}, fused D backward, cuDNN deterministic: R1 step "
+              f"{run['ms'][0]:.1f} ms, non-R1 steps " + " ".join(f"{t:.1f}" for t in run["ms"][1:])
+              + f" ms (steps 3-{REMAT_STEPS} mean {statistics.mean(plain):.1f}); peak "
+              f"{run['peak']:.2f} GiB; B3/B4 launches per step "
+              f"{[a for a, _ in (dbwd_off if name == 'off' else dbwd_on)]}")
+    print(f"remat (a): loss gap on vs off over {REMAT_STEPS} steps {loss_gap:.3e}; R1 step on/off "
+          f"{on['ms'][0] / off['ms'][0]:.3f}x, non-R1 on/off "
+          f"{statistics.mean(on['ms'][2:]) / statistics.mean(off['ms'][2:]):.3f}x, peak on/off "
+          f"{on['peak'] / off['peak']:.3f}x")
+    check(dbwd_on == dbwd_off and all(a > 0 and b > 0 for a, b in dbwd_on),
+          "remat (a): B3 and B4 launch as often with remat as without")
+    check(all(s["nearest_codes"] == s["nearest_codes_stats"] == 0
+              for s in off["launches"] + on["launches"]),
+          "remat (a): the gumbel GAN step launches neither B1 nor B2")
+    return dict(launches)
+
+
+def _remat_vq(card: str, device) -> dict:
+    """Remat (b): ``ema_vqvae.yaml`` (B2) and ``standard_vqvae.yaml`` (B1), one
+    micro-batch of ``REMAT_BATCH`` per step, bf16, cuDNN deterministic, two
+    steps from one seed and batch with remat off, then on: every step's codes
+    equal, the EMA quantizer's state after them (buffers and codebook)
+    equal, the standard codebook within ``GRAD_SHARE`` of its largest entry
+    (its gradient comes from the lookup's backward, whose atomic adds sum in
+    any order), and each kernel launched as often. -> this leg's
+    launches."""
+    launches = collections.Counter()
+    for path, kernel in ((TRAIN_CONFIG, "nearest_codes_stats"), (CONFIG, "nearest_codes")):
+        cfg = _one_step_config(path, REMAT_BATCH)
+        size = cfg.image_size
+        gen = torch.Generator(device=device).manual_seed(SEED + 41)
+        batch = {"image": torch.rand(REMAT_BATCH, size, size, 3, device=device, generator=gen)}
+        runs = {}
+        with _deterministic_cudnn():
+            for remat in (False, True):
+                trainer = Trainer(cfg, learning_rate=cfg.training.scaled_lr(), seed=SEED,
+                                  steps_per_epoch=STEPS_PER_EPOCH, compute_dtype=torch.bfloat16,
+                                  device=device, remat=remat)
+                state = trainer.init_state()
+                spy = _TrainCodes(state.model.quantizer)
+                before = _launches()
+                for _ in range(2):
+                    trainer.train_step(state, batch, epoch=0)
+                torch.cuda.synchronize()
+                spy.remove()
+                count = _since(before)
+                launches.update(count)
+                buffers = {k: v.detach().cpu()
+                           for k, v in state.model.quantizer.state_dict().items()}
+                runs[remat] = (spy.codes, buffers, count)
+                del trainer, state
+                torch.cuda.empty_cache()
+        (codes_off, buf_off, n_off), (codes_on, buf_on, n_on) = runs[False], runs[True]
+        same_codes = (len(codes_on) == len(codes_off) == 2
+                      and all(torch.equal(a, b) for a, b in zip(codes_on, codes_off)))
+        gaps = {k: float((buf_on[k].float() - buf_off[k].float()).abs().max()) for k in buf_off}
+        print(f"remat (b) [{card}]: {path.name} bf16, 2 steps of {REMAT_BATCH}, remat on vs off: "
+              f"codes of both steps equal {same_codes} ({sum(c.numel() for c in codes_on)} rows); "
+              f"quantizer state after them, largest |difference| "
+              + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
+              + f"; launches off {n_off}, on {n_on}")
+        check(same_codes, f"remat (b) {path.name}: the codes with remat equal those without")
+        if kernel == "nearest_codes_stats":
+            check(all(v == 0 for v in gaps.values()),
+                  f"remat (b) {path.name}: the EMA buffers and the codebook equal")
+        else:
+            share = max(gaps.values()) / float(buf_off["codebook.weight"].abs().max())
+            check(share <= GRAD_SHARE, f"remat (b) {path.name}: the codebook within "
+                  f"{GRAD_SHARE} of its largest entry ({share:.3e})")
+        check(n_on == n_off and n_on[kernel] == 2,
+              f"remat (b) {path.name}: {kernel} launched once per step, as often with remat")
+    return dict(launches)
+
+
+def _probe_step(trainer, state, batch_size: int, epoch: int, device, steps: int = 1) -> dict:
+    """``steps`` non-R1 train steps at ``batch_size`` on seeded images: ->
+    {"batch", "ok", "ms" (the last step's, CUDA events), "peak" (GiB since
+    the reset before the first)} or {"batch", "ok": False, "error"} when a
+    step fails (out of memory: the failure is the measurement, as in
+    ``probe_max_resolution``)."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 42)
+    size = trainer.cfg.image_size
+    found = {"batch": batch_size}
+    images = None
+    try:
+        images = torch.randint(0, 256, (batch_size, size, size, 3), dtype=torch.uint8,
+                               device=device, generator=gen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(steps):
+            trainer.host_step = 1   # not an R1 step
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            _, metrics = trainer.train_step(state, {"image": images}, epoch=epoch)
+            end.record()
+            end.synchronize()
+        found.update(ok=math.isfinite(float(metrics["loss"])), ms=start.elapsed_time(end),
+                     peak=torch.cuda.max_memory_allocated() / 2 ** 30)
+    except RuntimeError as exc:   # OutOfMemoryError, or a size a library refuses
+        found.update(ok=False, error=f"{type(exc).__name__}: {str(exc).splitlines()[0][:160]}")
+    images = metrics = None
+    torch.cuda.empty_cache()
+    return found
+
+
+def _capacity(trainer, state, epoch: int, device, start: int, card: str, what: str) -> list:
+    """Probes from ``start`` in steps of ``REMAT_STRIDE`` until a step fails or
+    ``REMAT_MAX_BATCH`` passed. -> the probes."""
+    rows = []
+    for b in range(start, REMAT_MAX_BATCH + 1, REMAT_STRIDE):
+        row = _probe_step(trainer, state, b, epoch, device)
+        rows.append(row)
+        print(f"remat (c) [{card}]: {what} micro-batch {b}: "
+              + (f"OK {row['ms']:.1f} ms, peak {row['peak']:.2f} GiB" if row["ok"]
+                 else f"FAIL {row.get('error', 'non-finite loss')}"), flush=True)
+        if not row["ok"]:
+            break
+    return rows
+
+
+def _calibrate(trainer, state, epoch: int, device, pixel_channels: float, card: str,
+               what: str) -> tuple:
+    """Two steps at each micro-batch of ``REMAT_CALIBRATION`` (remat off); if
+    the larger fails, the slope is taken between half the smaller and the
+    smaller. -> (bytes per pixel x base channel of the peak's slope, the
+    probes)."""
+    pair = [_probe_step(trainer, state, b, epoch, device, steps=2) for b in REMAT_CALIBRATION]
+    probes = list(pair)
+    if not pair[1]["ok"]:
+        print(f"remat (c) [{card}]: {what} micro-batch {pair[1]['batch']} remat off: FAIL "
+              f"{pair[1].get('error', 'non-finite loss')}")
+        pair = [_probe_step(trainer, state, REMAT_CALIBRATION[0] // 2, epoch, device, steps=2),
+                pair[0]]
+    check(all(p["ok"] for p in pair), f"remat (c): {what} steps at micro-batches "
+          f"{[p['batch'] for p in pair]} with remat off ({pair})")
+    (b0, p0), (b1, p1) = ((p["batch"], p["peak"]) for p in pair)
+    per_image = (p1 - p0) * 2 ** 30 / (b1 - b0)
+    port = loop.ACTIVATION_BYTES_PER_PIXEL_CHANNEL
+    print(f"remat (c) [{card}]: {what} bf16 remat off, peak {p0:.2f} GiB at {b0}, {p1:.2f} GiB "
+          f"at {b1} (second step {pair[0]['ms']:.1f} / {pair[1]['ms']:.1f} ms): "
+          f"{per_image / 2 ** 30:.4f} GiB = {per_image / 1e9:.4f} GB per image, "
+          f"{per_image / pixel_channels:.1f} bytes per pixel x base channel; the estimate's "
+          f"{port * pixel_channels / 1e9:.4f} GB per image (port constant {port}), JAX's "
+          f"{40.0 * pixel_channels / 1e9:.4f} GB (40.0): measured / JAX "
+          f"{per_image / pixel_channels / 40.0:.2f}x")
+    return per_image / pixel_channels, probes
+
+
+def _remat_capacity(card: str, device) -> dict:
+    """Remat (c): ``gumbel_vqgan_1chip.yaml`` at one micro-batch per step, bf16,
+    the D's backward fused, non-R1 steps: the peak at micro-batches
+    ``REMAT_CALIBRATION`` with remat off, pre-GAN and GAN, and the bytes per
+    pixel x base channel of the slope between them (the config has a GAN,
+    so the estimate's factor is 1), beside the JAX package's 40 and the
+    port's ``ACTIVATION_BYTES_PER_PIXEL_CHANNEL``; then the largest GAN
+    micro-batch (steps of ``REMAT_STRIDE``, at most ``REMAT_MAX_BATCH``) that
+    completes a step, remat off, then on. Fails if remat does not raise it,
+    or if the GAN's slope is not within 1.5x of the port's constant. ->
+    {"off": largest, "on": largest, "bytes": the GAN's slope, "launches":
+    this leg's}."""
+    cfg = _one_step_config(RECIPE_CONFIG, REMAT_BATCH)
+    gan_epoch = cfg.loss.adversarial.start_epoch
+    a = cfg.autoencoder
+    pixel_channels = cfg.image_size ** 2 * a.channels * max(1, a.num_res_blocks) / 2.0
+    before = _launches()
+    largest, slopes = {}, {}
+    for remat in (False, True):
+        torch.cuda.empty_cache()
+        trainer = Trainer(cfg, learning_rate=cfg.training.scaled_lr(), seed=SEED,
+                          steps_per_epoch=STEPS_PER_EPOCH, compute_dtype=torch.bfloat16,
+                          device=device, fused_dbwd=True, fused_skip=True, remat=remat)
+        state = trainer.init_state()
+        if not remat:
+            slopes["pre-GAN"], _ = _calibrate(trainer, state, 0, device, pixel_channels, card,
+                                              "pre-GAN")
+            slopes["GAN"], rows = _calibrate(trainer, state, gan_epoch, device, pixel_channels,
+                                             card, "GAN")
+            if rows[-1]["ok"]:
+                rows += _capacity(trainer, state, gan_epoch, device,
+                                  REMAT_CALIBRATION[-1] + REMAT_STRIDE, card, "GAN remat off")
+        else:
+            first = _probe_step(trainer, state, REMAT_CALIBRATION[0], gan_epoch, device, steps=2)
+            check(first["ok"], f"remat (c): a GAN step with remat at micro-batch "
+                  f"{REMAT_CALIBRATION[0]} ({first})")
+            print(f"remat (c) [{card}]: GAN remat on micro-batch {first['batch']}: second step "
+                  f"{first['ms']:.1f} ms, peak {first['peak']:.2f} GiB")
+            rows = [first] + _capacity(trainer, state, gan_epoch, device,
+                                       largest["off"] + REMAT_STRIDE, card, "GAN remat on")
+        fits = [r["batch"] for r in rows if r["ok"]]
+        largest["on" if remat else "off"] = max(fits, default=0)
+        del trainer, state
+        torch.cuda.empty_cache()
+    port = loop.ACTIVATION_BYTES_PER_PIXEL_CHANNEL
+    print(f"remat (c) [{card}]: the largest {cfg.image_size}^2 bf16 GAN micro-batch that "
+          f"completes a step (steps of {REMAT_STRIDE}, at most {REMAT_MAX_BATCH}): remat off "
+          f"{largest['off']}, on {largest['on']}; GAN {slopes['GAN']:.1f} bytes per pixel x base channel measured "
+          f"(pre-GAN {slopes['pre-GAN']:.1f}), port constant {port}, JAX 40.0")
+    check(0 < largest["off"] < REMAT_MAX_BATCH and largest["on"] > largest["off"],
+          "remat (c): remat raises the largest micro-batch that fits")
+    check(port / 1.5 <= slopes["GAN"] <= port * 1.5,
+          "remat (c): the measured bytes per pixel x channel within 1.5x of the port's constant")
+    return {"off": largest["off"], "on": largest["on"], "bytes": slopes["GAN"],
+            "launches": _since(before)}
+
+
+def _remat_cli(tmp: Path, card: str, device, fits: int) -> dict:
+    """Remat (d): the train CLI in process on ``gumbel_vqgan_1chip.yaml`` with
+    ``grad_accum_steps 1`` and the smallest per-card batch (a multiple of
+    ``REMAT_STRIDE``, at most (c)'s largest with remat) whose estimate
+    exceeds 75% of the card: two optimizer steps (pre-GAN) on packed data
+    written here. The Trainer decides remat itself, the gate reads the first
+    step's peak once; its decision and message are printed. -> launches."""
+    cfg = load_config(str(RECIPE_CONFIG))
+    budget = 0.75 * loop.device_hbm_gb(device)
+    batch = next((b for b in range(REMAT_STRIDE, REMAT_MAX_BATCH + 1, REMAT_STRIDE)
+                  if loop.estimate_activation_gb(_one_step_config(RECIPE_CONFIG, b), b)
+                  > budget), None)
+    check(batch is not None and batch <= fits,
+          f"remat (d): a per-card batch above the gate's threshold ({batch}) that (c) ran "
+          f"with remat (up to {fits})")
+    params = _yaml(tmp / "remat_gate.yaml", RECIPE_CONFIG, lambda raw: raw["training"].update(
+        cumulative_bs=batch, grad_accum_steps=1))
+    _write_packs(tmp / "remat_data", 2 * batch, REMAT_CLI_VAL_IMAGES, cfg.image_size, SEED + 43)
+    seen = []
+    real_gate = loop.Trainer.check_remat_gate
+
+    def gate(trainer, verbose=True):
+        msg = real_gate(trainer, verbose=verbose)
+        seen.append((trainer.remat, trainer._remat_auto, trainer.per_device_batch,
+                     loop.memory_peak_and_total(trainer.device), msg))
+        return msg
+
+    before = _launches()
+    with mock.patch.object(loop.Trainer, "check_remat_gate", gate), _StepSpy() as spy:
+        _cli(params, tmp / "remat_data", tmp / "ckpt", "remat", "--max_epochs", "1")
+    torch.cuda.synchronize()
+    _finite_losses(tmp / "ckpt" / "remat", "remat (d)")
+    check(len(seen) == 1, f"remat (d): the gate audited the first step once ({len(seen)})")
+    remat, auto, per_dev, (peak, total), msg = seen[0]
+    estimate = loop.estimate_activation_gb(load_config(params), batch)
+    print(f"remat (d) [{card}]: cli.train {RECIPE_CONFIG.name}, grad_accum_steps 1, per-card "
+          f"batch {per_dev} (pre-GAN, bf16): estimate_activation_gb {estimate:.2f} GB against "
+          f"0.75 x {budget / 0.75:.2f} GB = {budget:.2f} GB -> auto {auto}, remat {remat}; the "
+          f"first step peaked at {peak / 1e9:.2f} / {total / 1e9:.2f} GB ({peak / total:.0%}); "
+          f"check_remat_gate: {msg if msg else 'silent (the decision looks right)'}; ms per step "
+          + " ".join(f"{t:.1f}" for t, _, _ in spy.steps))
+    check(auto and remat and per_dev == batch, "remat (d): the gate chose remat on by itself")
+    check(len(spy.steps) == 2, "remat (d): two optimizer steps")
+    return _since(before)
+
+
+def phase_remat(card: str, device, tmp: Path) -> dict:
+    """Rematerialization on the card: (a) the GAN step, remat on vs off;
+    (b) the EMA and standard steps; (c) calibration and capacity; (d) the
+    gate through the train CLI. -> the phase's launches per kernel."""
+    torch.cuda.empty_cache()
+    launches = collections.Counter()
+    fits = {}
+
+    def capacity():
+        found = _remat_capacity(card, device)
+        fits.update(found)
+        return found["launches"]
+
+    for leg, fn in (("a", lambda: _remat_gan(card, device)),
+                    ("b", lambda: _remat_vq(card, device)),
+                    ("c", capacity),
+                    ("d", lambda: _remat_cli(tmp, card, device, fits["on"]))):
+        t0 = time.perf_counter()
+        launches.update(fn())
+        torch.cuda.empty_cache()
+        print(f"time [{card}]: remat ({leg}) took {time.perf_counter() - t0:.1f} s")
+    return dict(launches)
+
+
 def _record(name, source, replaces, launches, max_abs_err, shape, t) -> dict:
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": max_abs_err, "ms": t["kernel"],
@@ -2835,13 +3259,18 @@ def main() -> None:
         tools = phase_tools(card, device, tmp, step_ips)
         print(f"time [{card}]: tools: the phase took {time.perf_counter() - t_tools:.1f} s; "
               f"launches {tools}")
+        t_remat = time.perf_counter()
+        remat = phase_remat(card, device, tmp)
+        print(f"time [{card}]: remat: the phase took {time.perf_counter() - t_remat:.1f} s; "
+              f"launches {remat}")
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [
         # launches: the tokenizer path's, the training path's, the train
         # CLI's (cli_launches: the last alone, counted from 0 for each of its
         # legs), the eval and token-export CLIs' (eval_launches), the ddp
-        # phase's, every rank's (ddp_launches) and the serve phase's, every
-        # rank's (serve_launches); max_abs_err:
+        # phase's, every rank's (ddp_launches), the serve phase's, every
+        # rank's (serve_launches) and the remat phase's (remat_launches);
+        # max_abs_err:
         # the largest float64 score gap between the kernel's and the plain
         # version's pick over every compared row (0.0 where all agree)
         # bound_ms: 3 TF32 passes x 2MND on the tensor cores (bound_ops; the
@@ -2850,10 +3279,11 @@ def main() -> None:
         _record("nearest_codes", "vqvae_tpu_torch/csrc/nearest_codes.cu",
                 "vqvae_tpu/ops/vq_pallas.py:141",
                 b1_tokenizer + b1_train + cli["nearest_codes"] + b1_eval
-                + ddp.get("nearest_codes", 0) + b1_serve,
+                + ddp.get("nearest_codes", 0) + b1_serve + remat["nearest_codes"],
                 max(kernel_gap, slice_gap, large_gap), (8192, 1024, 256), b1) | _scan_bound(b1)
         | {"cli_launches": cli["nearest_codes"], "eval_launches": b1_eval,
            "ddp_launches": ddp.get("nearest_codes", 0), "serve_launches": b1_serve,
+           "remat_launches": remat["nearest_codes"],
            # the serve phase's probe: B1 on the latents of one image at the
            # card's resolution ceiling
            "ceiling_shape": {"shape": b1_large["shape"], "ms": b1_large["kernel"],
@@ -2864,28 +3294,32 @@ def main() -> None:
         # max_abs_err: the largest |dw - dw_plain| over the compared shapes
         _record("nearest_codes_stats", "vqvae_tpu_torch/csrc/nearest_codes_stats.cu",
                 "vqvae_tpu/ops/vq_pallas.py:89",
-                b2_train + cli["nearest_codes_stats"] + ddp.get("nearest_codes_stats", 0),
-                stats_err, STATS_SHAPES[0], b2) | _scan_bound(b2)
+                b2_train + cli["nearest_codes_stats"] + ddp.get("nearest_codes_stats", 0)
+                + remat["nearest_codes_stats"], stats_err, STATS_SHAPES[0], b2) | _scan_bound(b2)
         | {"cli_launches": cli["nearest_codes_stats"],
-           "ddp_launches": ddp.get("nearest_codes_stats", 0)},
+           "ddp_launches": ddp.get("nearest_codes_stats", 0),
+           "remat_launches": remat["nearest_codes_stats"]},
         # launches: the GAN path's 8 train steps, the CLI's leg (c), the ddp
-        # phase's and the tools phase's bench_breakdown (tools_launches); max_abs_err: the largest
+        # phase's, the tools phase's bench_breakdown (tools_launches) and the
+        # remat phase's GAN steps (remat_launches); max_abs_err: the largest
         # |kernel - plain| over every compared shape, fp32 and bf16 (bf16 is
         # one bf16 ulp); times at the first block's shape in bf16, the
         # training compute dtype
         _record("blur_t_gate", "vqvae_tpu_torch/csrc/fused_dbwd.cu",
                 "vqvae_tpu/ops/fused_dbwd.py:220",
-                b3_gan + cli["blur_t_gate"] + ddp.get("blur_t_gate", 0) + tools["blur_t_gate"],
-                b3_err, b256, dbwd[("B3", torch.bfloat16, b256)])
+                b3_gan + cli["blur_t_gate"] + ddp.get("blur_t_gate", 0) + tools["blur_t_gate"]
+                + remat["blur_t_gate"], b3_err, b256, dbwd[("B3", torch.bfloat16, b256)])
         | {"dtype": "bfloat16", "cli_launches": cli["blur_t_gate"],
-           "ddp_launches": ddp.get("blur_t_gate", 0), "tools_launches": tools["blur_t_gate"]},
+           "ddp_launches": ddp.get("blur_t_gate", 0), "tools_launches": tools["blur_t_gate"],
+           "remat_launches": remat["blur_t_gate"]},
         _record("skip_fanout_bwd", "vqvae_tpu_torch/csrc/fused_dbwd.cu",
                 "vqvae_tpu/ops/fused_dbwd.py:386",
                 b4_gan + cli["skip_fanout_bwd"] + ddp.get("skip_fanout_bwd", 0)
-                + tools["skip_fanout_bwd"], b4_err, b256, dbwd[("B4", torch.bfloat16, b256)])
+                + tools["skip_fanout_bwd"] + remat["skip_fanout_bwd"], b4_err, b256,
+                dbwd[("B4", torch.bfloat16, b256)])
         | {"dtype": "bfloat16", "cli_launches": cli["skip_fanout_bwd"],
            "ddp_launches": ddp.get("skip_fanout_bwd", 0),
-           "tools_launches": tools["skip_fanout_bwd"]},
+           "tools_launches": tools["skip_fanout_bwd"], "remat_launches": remat["skip_fanout_bwd"]},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -12,7 +12,10 @@ part), against ``tools/bench_input.py``, ``tools/bench_breakdown.py`` and
   ``CALLS`` calls after ``WARMUP`` (the JAX tool's window, host steps 3-6,
   holds none);
 - ``bench_input.main`` at 16^2 counts every image on both loaders and
-  returns positive rates.
+  returns positive rates;
+- ``--remat``: ``bench_breakdown --remat 1 --device cpu`` and the ``step``
+  part of ``profile_tokenizer`` with ``--remat 1`` run on the 16^2 config
+  with every residual and D block checkpointed; the default stays ``0``.
 """
 
 import dataclasses
@@ -30,6 +33,7 @@ torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parent.parent
 BATCH = 4
+MAKE_CFG = bench_breakdown.make_cfg   # the tests below patch the module's
 
 
 def _jax_tool(name: str):
@@ -49,15 +53,20 @@ def test_make_cfg_equals_the_jax_tools(variant):
     assert (got.use_adversarial and got.loss.adversarial.r1_reg_weight is not None) == kw["r1"]
 
 
+def _tiny_cfg(image_size, channels, **variant):
+    """``make_cfg`` cut to 16^2, channels 32, one residual block, N 32, D 8."""
+    cfg = MAKE_CFG(16, 32, **variant)
+    return dataclasses.replace(
+        cfg, autoencoder=dataclasses.replace(cfg.autoencoder, num_res_blocks=1,
+                                             channel_multipliers=(1, 2)),
+        quantizer=dataclasses.replace(cfg.quantizer, num_embeddings=32, embedding_dim=8))
+
+
 @pytest.fixture(scope="module")
 def gan_r1(tmp_path_factory):
     """``make_cfg``'s ``gan_r1`` cut to 16^2, channels 32, one residual block
     (R1 every 16 steps kept), its Trainer (a narrow D), state and batch."""
-    cfg = bench_breakdown.make_cfg(16, 32, **bench_breakdown.VARIANTS["gan_r1"])
-    cfg = dataclasses.replace(
-        cfg, autoencoder=dataclasses.replace(cfg.autoencoder, num_res_blocks=1,
-                                             channel_multipliers=(1, 2)),
-        quantizer=dataclasses.replace(cfg.quantizer, num_embeddings=32, embedding_dim=8))
+    cfg = _tiny_cfg(256, 128, **bench_breakdown.VARIANTS["gan_r1"])
     assert cfg.loss.adversarial.r1_reg_every == 16
     mp = pytest.MonkeyPatch()
     mp.setenv("VQVAE_TPU_LPIPS_WEIGHTS_DIR", str(tmp_path_factory.mktemp("lpips")))
@@ -129,3 +138,67 @@ def test_bench_input_counts_every_image(tmp_path, capsys):
     assert out[1].startswith("image folder (PIL jpeg decode + resize):")
     assert len(list((tmp_path / "imgs16").glob("*.jpg"))) == 64
     assert (tmp_path / "data16_64.pack").is_file()
+
+
+class _TrainerSpy:
+    """Replaces ``loop.Trainer`` by a subclass that keeps each instance."""
+
+    def __init__(self, monkeypatch):
+        from vqvae_tpu_torch.train import loop
+        self.made = []
+        spy = self
+
+        class Spied(loop.Trainer):
+            def __post_init__(self):
+                super().__post_init__()
+                spy.made.append(self)
+
+            def init_state(self):
+                state = super().init_state()
+                spy.states.append(state)
+                return state
+
+        self.states = []
+        monkeypatch.setattr(loop, "Trainer", Spied)
+
+
+def _all_checkpointed(state) -> bool:
+    from vqvae_tpu_torch.models.autoencoder import ResBlock
+    blocks = [m for m in state.model.modules() if isinstance(m, ResBlock)]
+    return bool(blocks) and all(m.remat for m in blocks)
+
+
+def test_bench_breakdown_remat_flag(monkeypatch):
+    assert bench_breakdown.parse_args([]).remat == "0"
+    assert [bench_breakdown.remat_arg(v) for v in ("0", "1", "auto")] == [False, True, None]
+    monkeypatch.setattr(bench_breakdown, "make_cfg", _tiny_cfg)
+    real = bench_breakdown.time_steps
+    monkeypatch.setattr(bench_breakdown, "time_steps",
+                        lambda trainer, state, batch: real(trainer, state, batch, n=2))
+    spy = _TrainerSpy(monkeypatch)
+    rec = bench_breakdown.main(["--remat", "1", "--device", "cpu", "--configs", "mse",
+                                "--batch", str(BATCH)])
+    assert rec["remat"] == "1" and rec["mse"]["finite"] and len(rec["mse"]["step_ms"]) == 2
+    assert [t.remat for t in spy.made] == [True] and _all_checkpointed(spy.states[0])
+
+
+def test_profile_step_remat_flag(monkeypatch):
+    args = profile_tokenizer.parse_args(["step", "mse", "--remat", "1"])
+    assert (args.part, args.variant, args.remat) == ("step", "mse", "1")
+    assert profile_tokenizer.parse_args([]).remat == "0"
+    monkeypatch.setattr(bench_breakdown, "make_cfg", _tiny_cfg)
+    monkeypatch.setattr(profile_tokenizer, "BATCH", BATCH)
+    calls = []
+
+    def profile_call(fn):   # the CPU has no CUDA events or device trace
+        for _ in range(profile_tokenizer.WARMUP + profile_tokenizer.CALLS):
+            calls.append(fn())
+        return 1.0, 1.0, {}
+
+    monkeypatch.setattr(profile_tokenizer, "profile_call", profile_call)
+    spy = _TrainerSpy(monkeypatch)
+    window = profile_tokenizer.profile_step(args.variant, torch.device("cpu"), "cpu",
+                                            bench_breakdown.remat_arg(args.remat))
+    assert window == [False] * profile_tokenizer.CALLS
+    assert len(calls) == profile_tokenizer.WARMUP + profile_tokenizer.CALLS
+    assert [t.remat for t in spy.made] == [True] and _all_checkpointed(spy.states[0])

@@ -126,7 +126,7 @@ def test_entry_points_ask_for_the_card_by_default(monkeypatch, tmp_path):
     class Asked(Exception):
         pass
 
-    def record_from_config(cfg, dtype=torch.float32, device="cuda", generator=None):
+    def record_from_config(cfg, dtype=torch.float32, device="cuda", generator=None, remat=False):
         asked.append(device)
         raise Asked  # the state would be built on the card
 
@@ -152,7 +152,7 @@ def test_trainer_under_a_group_asks_for_its_local_rank(monkeypatch, tmp_path):
 
     asked = []
 
-    def record_from_config(cfg, dtype=torch.float32, device="cuda", generator=None):
+    def record_from_config(cfg, dtype=torch.float32, device="cuda", generator=None, remat=False):
         asked.append(device)
         raise Asked
 

@@ -2,7 +2,7 @@
 ``tools/bench_breakdown.py``).
 
     python -m vqvae_tpu_torch.bench_breakdown [--batch 32] [--configs mse,lpips,gan,gan_r1]
-        [--fused_dbwd] [--fused_skip] [--device cuda|cpu]
+        [--fused_dbwd] [--fused_skip] [--remat 0|1|auto] [--device cuda|cpu]
 
 Four variants of the 256^2 gumbel VQGAN (``make_cfg``, the JAX tool's raw
 dict: channels 128, multipliers [1, 2, 2, 4], 2 residual blocks, N 1024,
@@ -23,8 +23,10 @@ holds exactly one R1 step (host step 16), as the JAX tool's does; that
 step's ms and the other steps' mean are reported apart. ``--fused_dbwd`` /
 ``--fused_skip`` send the discriminator's first-order backward through the
 kernels B3 / B4 (the JAX Trainer's ``VQVAE_TPU_FUSED_DBWD`` /
-``VQVAE_TPU_FUSED_SKIP``); both are off by default, as there. The JAX
-tool's ``--remat`` has no counterpart: the port has no remat.
+``VQVAE_TPU_FUSED_SKIP``); both are off by default, as there. ``--remat``
+is the Trainer's ``remat``: ``1`` checkpoints every residual and D block,
+``auto`` lets the Trainer decide (batch unknown: on at 256^2); the default
+``0`` is the JAX tool's (remat off, ``bench.py``'s flagship configuration).
 
 Per variant it prints ``ms/step`` and ``img/s`` (the JAX tool's keys), and
 for ``gan_r1`` ``r1_ms`` and ``non_r1_ms``; the last line is the JSON
@@ -128,9 +130,17 @@ def parse_args(argv=None):
                     help="the D's first-order backward through B3 (VQVAE_TPU_FUSED_DBWD)")
     ap.add_argument("--fused_skip", action="store_true",
                     help="the D's skip fan-out backward through B4 (VQVAE_TPU_FUSED_SKIP)")
+    ap.add_argument("--remat", default="0", choices=["0", "1", "auto"],
+                    help="the Trainer's remat: off, on, or its own decision")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where to run; cuda needs a visible card")
     return ap.parse_args(argv)
+
+
+def remat_arg(value: str):
+    """``--remat`` as the Trainer's ``remat``: 0 -> False, 1 -> True, auto -> None."""
+    return None if value == "auto" else value == "1"
+
 
 
 def main(argv=None) -> dict:
@@ -160,7 +170,8 @@ def main(argv=None) -> dict:
         cfg = make_cfg(image_size, channels, **VARIANTS[name])
         trainer = Trainer(cfg=cfg, learning_rate=1e-4, seed=0, steps_per_epoch=1000,
                           compute_dtype=torch.bfloat16, device=device,
-                          fused_dbwd=args.fused_dbwd, fused_skip=args.fused_skip)
+                          fused_dbwd=args.fused_dbwd, fused_skip=args.fused_skip,
+                          remat=remat_arg(args.remat))
         state = trainer.init_state()
         t = time_steps(trainer, state, batch_dict)
         ms = sum(t["step_ms"]) / len(t["step_ms"])
@@ -181,7 +192,8 @@ def main(argv=None) -> dict:
         if on_card:
             torch.cuda.empty_cache()
 
-    record = {"batch": batch, "fused_dbwd": args.fused_dbwd, "fused_skip": args.fused_skip,
+    record = {"batch": batch, "remat": args.remat, "fused_dbwd": args.fused_dbwd,
+              "fused_skip": args.fused_skip,
               "device": torch.cuda.get_device_name(device) if on_card else "cpu",
               "card": card, **results}
     print(json.dumps(record))

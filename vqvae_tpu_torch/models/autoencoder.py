@@ -6,6 +6,13 @@ weights both ways. The plain forms are carried: the JAX package's exact TPU
 rewrites (pool folded into a stride-2 conv, upsample folded into an
 lhs-dilated conv, the fused GN-SiLU VJP, the padded output conv) are not.
 
+``remat=True`` checkpoints every ``ResBlock`` (the JAX modules' ``nn.remat``,
+``vqvae_tpu/models/autoencoder.py:527,563``): its activations are recomputed
+in the backward pass instead of being kept. The flag lives on the block, so
+the module tree and the ``state_dict`` keys do not depend on it, and it acts
+only where autograd records (``torch.is_grad_enabled()``): eval and serving
+run the plain forward.
+
 Precision policy as in the JAX package: fp32 parameters, convolutions in the
 compute ``dtype``, GroupNorm statistics in fp32. Parameters are drawn with
 torch's default conv init, U(+-1/sqrt(fan_in)) for kernels and biases, from
@@ -20,6 +27,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 class Conv2d(nn.Conv2d):
@@ -95,8 +103,9 @@ class ResBlock(nn.Module):
     convs, 1x1 shortcut when channels change (reference autoencoder.py:42-77)."""
 
     def __init__(self, in_ch: int, out_ch: int, dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.norm1 = GroupNorm(in_ch, dtype=dtype)
         self.conv1 = Conv2d(in_ch, out_ch, 3, bias=False, dtype=dtype, generator=generator)
         self.norm2 = GroupNorm(out_ch, dtype=dtype)
@@ -106,6 +115,12 @@ class ResBlock(nn.Module):
                               if in_ch != out_ch else None)
 
     def forward(self, x):
+        if self.remat and torch.is_grad_enabled():
+            # the block draws no random numbers: no RNG state to replay
+            return checkpoint(self._forward, x, use_reentrant=False, preserve_rng_state=False)
+        return self._forward(x)
+
+    def _forward(self, x):
         residual = self.conv1(F.silu(self.norm1(x)))
         residual = self.conv2(F.silu(self.norm2(residual)))
         if self.conv_shortcut is not None:
@@ -135,12 +150,12 @@ class Upsample(nn.Module):
 class Encoder(nn.Module):
     """stem 3x3 -> per multiplier [num_res_blocks ResBlocks + Downsample] ->
     num_res_blocks final ResBlocks -> GN -> SiLU -> 1x1 conv; fp32 output
-    (reference autoencoder.py:109-143)."""
+    (reference autoencoder.py:109-143). ``remat``: checkpoint each ResBlock."""
 
     def __init__(self, channels: int, num_res_blocks: int,
                  channel_multipliers: Sequence[int], embedding_dim: int,
                  dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, remat: bool = False):
         super().__init__()
         self.dtype = dtype
         self.conv_in = Conv2d(3, channels, 3, bias=False, dtype=dtype, generator=generator)
@@ -148,12 +163,12 @@ class Encoder(nn.Module):
         ch = channels
         for mult in channel_multipliers:
             for _ in range(num_res_blocks):
-                blocks.append(ResBlock(ch, channels * mult, dtype, generator))
+                blocks.append(ResBlock(ch, channels * mult, dtype, generator, remat))
                 ch = channels * mult
             blocks.append(Downsample())
         self.blocks = nn.Sequential(*blocks)
         self.final_residual = nn.Sequential(
-            *[ResBlock(ch, ch, dtype, generator) for _ in range(num_res_blocks)])
+            *[ResBlock(ch, ch, dtype, generator, remat) for _ in range(num_res_blocks)])
         self.norm = GroupNorm(ch, dtype=dtype)
         self.conv_out = Conv2d(ch, embedding_dim, 1, bias=True, dtype=dtype,
                                generator=generator)
@@ -166,24 +181,25 @@ class Encoder(nn.Module):
 
 class Decoder(nn.Module):
     """Mirror of the encoder with nearest x2 upsampling and a final tanh in
-    fp32 (reference autoencoder.py:146-180)."""
+    fp32 (reference autoencoder.py:146-180). ``remat``: checkpoint each
+    ResBlock."""
 
     def __init__(self, channels: int, num_res_blocks: int,
                  channel_multipliers: Sequence[int], embedding_dim: int,
                  dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, remat: bool = False):
         super().__init__()
         self.dtype = dtype
         ch = channels * channel_multipliers[-1]
         self.conv_in = Conv2d(embedding_dim, ch, 3, bias=True, dtype=dtype,
                               generator=generator)
         self.initial_residual = nn.Sequential(
-            *[ResBlock(ch, ch, dtype, generator) for _ in range(num_res_blocks)])
+            *[ResBlock(ch, ch, dtype, generator, remat) for _ in range(num_res_blocks)])
         blocks = []
         for i in reversed(range(len(channel_multipliers))):
             ch_out = channels * channel_multipliers[i - 1] if i > 0 else channels
             for _ in range(num_res_blocks):
-                blocks.append(ResBlock(ch, ch_out, dtype, generator))
+                blocks.append(ResBlock(ch, ch_out, dtype, generator, remat))
                 ch = ch_out
             blocks.append(Upsample(ch, dtype, generator))
         self.blocks = nn.Sequential(*blocks)

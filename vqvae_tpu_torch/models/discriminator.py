@@ -16,6 +16,13 @@ input fan-out through ``ops.fused_dbwd``'s Functions, whose backwards are the
 kernels B3 and B4: the same parameters and forward, another backward, first
 order only. ``forward(img, fused=False)`` runs the plain module, as the R1
 penalty must.
+
+``remat=True`` checkpoints every block (the JAX module's ``nn.remat``,
+``vqvae_tpu/models/discriminator.py:285``) where autograd records; the
+epilogue stays plain, as there. The checkpoint is the non-reentrant one,
+which the R1 penalty's ``autograd.grad(create_graph=True)`` and
+``backward(inputs=...)`` go through; recomputing a fused block's forward
+launches no kernel (B3 / B4 are its backward).
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from vqvae_tpu_torch.ops.bias_act import activation_funcs, bias_act
 from vqvae_tpu_torch.ops.conv2d_resample import conv2d, conv2d_resample
@@ -104,8 +112,10 @@ class DiscriminatorBlock(nn.Module):
     def __init__(self, tmp_channels: int, out_channels: int, has_fromrgb: bool,
                  img_channels: int = 3, activation: str = "lrelu",
                  dtype: torch.dtype = torch.float32, fused_dbwd: bool = False,
-                 fused_skip: bool = False, generator: Optional[torch.Generator] = None):
+                 fused_skip: bool = False, generator: Optional[torch.Generator] = None,
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.dtype = dtype
         self.activation = activation
         self.fused_dbwd = fused_dbwd
@@ -123,6 +133,13 @@ class DiscriminatorBlock(nn.Module):
         self.has_fromrgb = has_fromrgb
 
     def forward(self, x, img, fused: bool = True):
+        if self.remat and torch.is_grad_enabled():
+            # the block draws no random numbers: no RNG state to replay
+            return checkpoint(self._forward, x, img, fused, use_reentrant=False,
+                              preserve_rng_state=False)
+        return self._forward(x, img, fused)
+
+    def _forward(self, x, img, fused: bool):
         if self.has_fromrgb:
             y = self.fromrgb(img)
             x = x + y if x is not None else y
@@ -189,12 +206,13 @@ class Discriminator(nn.Module):
     (-1, 1), returns (B, 1) fp32 logits.
 
     The weights are drawn on the CPU from ``seed`` (the same on every device),
-    then moved to ``device``, the card unless the caller asks for the CPU."""
+    then moved to ``device``, the card unless the caller asks for the CPU.
+    ``remat``: checkpoint each block."""
 
     def __init__(self, img_resolution: int, img_channels: int = 3, channel_base: int = 32768,
                  channel_max: int = 512, activation: str = "lrelu",
                  dtype: torch.dtype = torch.float32, fused_dbwd: bool = False,
-                 fused_skip: bool = False, seed: int = 0, device="cuda"):
+                 fused_skip: bool = False, seed: int = 0, device="cuda", remat: bool = False):
         super().__init__()
         generator = torch.Generator().manual_seed(seed)
         res_log2 = int(math.log2(img_resolution))
@@ -207,7 +225,7 @@ class Discriminator(nn.Module):
                 channels[res], channels[res // 2],
                 has_fromrgb=(res == img_resolution), img_channels=img_channels,
                 activation=activation, dtype=dtype, fused_dbwd=fused_dbwd,
-                fused_skip=fused_skip, generator=generator))
+                fused_skip=fused_skip, generator=generator, remat=remat))
         self.b4 = DiscriminatorEpilogue(channels[4], activation=activation, generator=generator)
         self.to(device)
 

@@ -8,6 +8,9 @@ order. The modules inside run NCHW. The tokenizer API (``get_tokens``,
 ``quantize``, ``reconstruct``, ``reconstruct_from_tokens``) runs under
 ``torch.inference_mode()``.
 
+``remat=True`` checkpoints every residual block of the encoder and decoder
+in training (``models/autoencoder.py``); it changes no value and no key.
+
 For the gumbel quantizer the encoder emits ``num_embeddings`` channels
 (reference model.py:130); ``temp`` and ``kl_cost`` are call-time arguments
 (the schedules' values), and ``generator`` draws the gumbel noise.
@@ -40,20 +43,21 @@ class VQVAE(nn.Module):
     def __init__(self, channels: int, num_res_blocks: int, channel_multipliers,
                  num_embeddings: int, embedding_dim: int, quantizer_type: str,
                  quantizer_params: dict, dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, remat: bool = False):
         super().__init__()
         self.quantizer_type = quantizer_type
         self.quantizer = make_quantizer(quantizer_type, num_embeddings, embedding_dim,
                                         quantizer_params, generator)
         encoder_out = num_embeddings if quantizer_type == "gumbel" else embedding_dim
         self.encoder = Encoder(channels, num_res_blocks, channel_multipliers,
-                               encoder_out, dtype, generator)
+                               encoder_out, dtype, generator, remat)
         self.decoder = Decoder(channels, num_res_blocks, channel_multipliers,
-                               embedding_dim, dtype, generator)
+                               embedding_dim, dtype, generator, remat)
 
     @classmethod
     def from_config(cls, cfg: Config, dtype: torch.dtype = torch.float32,
-                    device="cuda", generator: Optional[torch.Generator] = None) -> "VQVAE":
+                    device="cuda", generator: Optional[torch.Generator] = None,
+                    remat: bool = False) -> "VQVAE":
         """Build from a parsed config; parameters are drawn on the CPU from
         ``generator`` (a seed gives the same weights on every device), then
         moved to ``device``, the card unless the caller asks for the CPU.
@@ -68,6 +72,7 @@ class VQVAE(nn.Module):
             quantizer_params=dict(cfg.quantizer.params),
             dtype=dtype,
             generator=generator,
+            remat=remat,
         )
         return model.to(device).eval()
 

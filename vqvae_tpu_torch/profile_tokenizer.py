@@ -1,8 +1,8 @@
 """Where the device time of the tokenizer API, the EMA training step and the
 GAN training step goes, on one CUDA card.
 
-    python -m vqvae_tpu_torch.profile_tokenizer [all | tokenizer | ema | gan]
-    python -m vqvae_tpu_torch.profile_tokenizer step [mse | lpips | gan | gan_r1]
+    python -m vqvae_tpu_torch.profile_tokenizer [all | tokenizer | ema | gan] [--remat 0|1|auto]
+    python -m vqvae_tpu_torch.profile_tokenizer step [mse | lpips | gan | gan_r1] [--remat ...]
 
 Builds ``VQVAE`` from ``example_confs/standard_vqvae.yaml`` and ``Trainer``s
 from ``example_confs/ema_vqvae.yaml`` and ``example_confs/gumbel_vqgan.yaml``
@@ -29,7 +29,9 @@ forward and backward passes of a non-R1 step. Per call it prints:
   the ``TOP`` kernels by time.
 
 Times are per call (window / ``CALLS``). The first line is the card's
-name and power limit from ``nvidia-smi``.
+name and power limit from ``nvidia-smi``. ``--remat`` is every profiled
+Trainer's ``remat`` (``bench_breakdown.remat_arg``); the default ``0`` is
+the JAX tool's (``tools/profile_step.py:117-122``).
 
 The ``step`` part (counterpart of ``tools/profile_step.py``) profiles the
 train step of one variant of ``bench_breakdown`` (default ``gan_r1``) at
@@ -43,10 +45,12 @@ that the first step of the window is one (the JAX tool profiles host steps
 
 from __future__ import annotations
 
+import argparse
 import subprocess
 import sys
 from collections import defaultdict
 from pathlib import Path
+from typing import Optional
 
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -139,7 +143,7 @@ def report(label: str, window_ms: float, busy: float, per_kernel: dict, card: st
         print(f"  {ms / CALLS:9.2f} ms {count // CALLS:4d}x  {kind_of(name):16s} {name[:110]}")
 
 
-def profile_gan(device, card: str) -> None:
+def profile_gan(device, card: str, remat: Optional[bool] = False) -> None:
     """The GAN step on gumbel_vqgan.yaml, then its LPIPS and D alone."""
     from vqvae_tpu_torch import load_config
     from vqvae_tpu_torch.train.loop import Trainer
@@ -153,7 +157,7 @@ def profile_gan(device, card: str) -> None:
         name = str(dtype).removeprefix("torch.")
         trainer = Trainer(cfg, learning_rate=cfg.training.scaled_lr(), seed=SEED,
                           steps_per_epoch=1000, compute_dtype=dtype, device=device,
-                          fused_dbwd=True, fused_skip=True)
+                          fused_dbwd=True, fused_skip=True, remat=remat)
         state = trainer.init_state()
         for r1, fused in ((False, True), (False, False), (True, True)):
             def step():
@@ -197,16 +201,16 @@ def step_window_start(r1_every: int) -> int:
     return r1_every - WARMUP % r1_every
 
 
-def profile_step(variant: str, device, card: str) -> list:
+def profile_step(variant: str, device, card: str, remat: Optional[bool] = False) -> list:
     """The train step of ``bench_breakdown``'s ``variant`` (bf16, batch
-    ``BATCH``, plain D backward), profiled. -> whether each call of the
-    window took R1."""
+    ``BATCH``, plain D backward, the Trainer's ``remat``), profiled. ->
+    whether each call of the window took R1."""
     from vqvae_tpu_torch.bench_breakdown import VARIANTS, make_cfg
     from vqvae_tpu_torch.train.loop import Trainer
 
     cfg = make_cfg(256, 128, **VARIANTS[variant])
     trainer = Trainer(cfg=cfg, learning_rate=1e-4, seed=SEED, steps_per_epoch=1000,
-                      compute_dtype=torch.bfloat16, device=device)
+                      compute_dtype=torch.bfloat16, device=device, remat=remat)
     state = trainer.init_state()
     gen = torch.Generator(device=device).manual_seed(SEED + 3)
     size = cfg.image_size
@@ -222,7 +226,8 @@ def profile_step(variant: str, device, card: str) -> list:
 
     timings = profile_call(step)
     window = took_r1[WARMUP:]
-    report(f"train_step {variant} bf16 batch {BATCH}, plain D backward; R1 on window call"
+    report(f"train_step {variant} bf16 batch {BATCH}, plain D backward, remat "
+           f"{trainer.remat}; R1 on window call"
            f"{'s' if sum(window) != 1 else ''} "
            + (", ".join(str(i + 1) for i, r in enumerate(window) if r) or "none")
            + f" of {CALLS}", *timings, card)
@@ -231,18 +236,27 @@ def profile_step(variant: str, device, card: str) -> list:
     return window
 
 
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("part", nargs="?", default="all",
+                    choices=["all", "tokenizer", "ema", "gan", "step"])
+    ap.add_argument("variant", nargs="?", default="gan_r1",
+                    help="the step part's bench_breakdown variant: mse | lpips | gan | gan_r1")
+    ap.add_argument("--remat", default="0", choices=["0", "1", "auto"],
+                    help="the profiled Trainers' remat: off, on, or their own decision")
+    return ap.parse_args(argv)
+
+
 def main(argv=None):
     """Runs the part ``argv`` names; -> the ``step`` part's window R1 flags."""
-    argv = sys.argv[1:] if argv is None else argv
+    from vqvae_tpu_torch import VQVAE, load_config
+    from vqvae_tpu_torch.bench_breakdown import VARIANTS, remat_arg
+    from vqvae_tpu_torch.train.loop import Trainer
+
+    args = parse_args(argv)
+    what, remat = args.part, remat_arg(args.remat)
     if not torch.cuda.is_available():
         sys.exit("profile_tokenizer: no CUDA device is visible")
-    what = argv[0] if argv else "all"
-    if what not in ("all", "tokenizer", "ema", "gan", "step"):
-        sys.exit(f"profile_tokenizer: unknown part {what!r}: all | tokenizer | ema | gan | step")
-
-    from vqvae_tpu_torch import VQVAE, load_config
-    from vqvae_tpu_torch.bench_breakdown import VARIANTS
-    from vqvae_tpu_torch.train.loop import Trainer
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -252,12 +266,12 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
     if what == "step":
-        variant = argv[1] if len(argv) > 1 else "gan_r1"
-        if variant not in VARIANTS:
-            sys.exit(f"profile_tokenizer: unknown variant {variant!r}: {' | '.join(VARIANTS)}")
-        return profile_step(variant, device, card)
+        if args.variant not in VARIANTS:
+            sys.exit(f"profile_tokenizer: unknown variant {args.variant!r}: "
+                     f"{' | '.join(VARIANTS)}")
+        return profile_step(args.variant, device, card, remat)
     if what in ("all", "gan"):
-        profile_gan(device, card)
+        profile_gan(device, card, remat)
     if what == "gan":
         return
     cfg = load_config(str(CONFIG))
@@ -280,7 +294,8 @@ def main(argv=None):
     batch = {"image": torch.rand(BATCH, size, size, 3, device=device, generator=gen)}
     for dtype in (torch.float32, torch.bfloat16) if what in ("all", "ema") else ():
         trainer = Trainer(train_cfg, learning_rate=train_cfg.training.scaled_lr(), seed=SEED,
-                          steps_per_epoch=1000, compute_dtype=dtype, device=device)
+                          steps_per_epoch=1000, compute_dtype=dtype, device=device,
+                          remat=remat)
         state = trainer.init_state()
         report(f"train_step ema {str(dtype).removeprefix('torch.')} batch {BATCH}",
                *profile_call(lambda: trainer.train_step(state, batch, epoch=0)), card)

@@ -21,8 +21,15 @@ as there. ``native_lr`` is the native LR twin whose value is logged.
 (train.py:128-142, model.py:163-370): validation every 5 epochs (epoch 0
 too), reconstruction panels at batch 2, epoch means of the step metrics
 (summed on the device, fetched once per epoch), dead-code reinit every
-``reinit_every_n_epochs``, checkpoints every N epochs and ``last``. The
-remat gate of the JAX loop is not ported.
+``reinit_every_n_epochs``, checkpoints every N epochs and ``last``.
+
+Rematerialization (``Trainer.remat``, JAX ``loop.py:98-120``): True
+checkpoints every autoencoder ``ResBlock`` and every ``DiscriminatorBlock``;
+None (the default) decides from ``estimate_activation_gb`` at
+``per_device_batch`` against 75% of ``device_hbm_gb``, or, with the batch
+unknown, by ``image_size >= 128``. ``run_training`` passes the per-rank
+batch, resets the card's peak memory before the first step and audits the
+decision after it (``check_remat_gate``).
 
 Data parallel: every rank builds the same initial state from the seed (the
 replicas are checked bitwise after init and after every restore), draws its
@@ -59,6 +66,51 @@ from vqvae_tpu_torch.utils.checkpoint import CheckpointManager
 from vqvae_tpu_torch.utils.introspect import check_replication
 from vqvae_tpu_torch.utils.logging import MetricLogger, make_recon_panel
 
+# Bytes of activations kept per pixel x base channel of a 256^2 GAN train
+# step with 2 residual blocks and no remat: the slope of the peak between
+# micro-batches 32 and 64 of gumbel_vqgan_1chip.yaml's GAN step in bf16 on an
+# H100 (148.7, chip_smoke.py's remat phase), to two figures. The JAX
+# package's 40.0 models XLA's buffers on a v5e; eager PyTorch keeps more
+# intermediates (a deliberate divergence: the constant models the runtime).
+ACTIVATION_BYTES_PER_PIXEL_CHANNEL = 150.0
+
+
+def device_hbm_gb(device: torch.device) -> float:
+    """The memory budget of the auto-remat gate, in GB: the card's total
+    memory, or the JAX package's 16 GB fallback when the caller asked for the
+    CPU (JAX ``loop.py:50-61``)."""
+    if device.type == "cuda":
+        return torch.cuda.mem_get_info(device)[1] / 1e9
+    return 16.0
+
+
+def memory_peak_and_total(device: torch.device) -> Optional[tuple]:
+    """(peak bytes allocated since the last reset, the card's total bytes),
+    read after the card's work is done; None off the card (no statistics)."""
+    if device.type != "cuda":
+        return None
+    torch.cuda.synchronize(device)
+    return torch.cuda.max_memory_allocated(device), torch.cuda.mem_get_info(device)[1]
+
+
+def estimate_activation_gb(cfg: Config, per_device_batch: int) -> float:
+    """The remat gate's activation-memory model (JAX ``loop.py:64-84``, the
+    same formula): ``ACTIVATION_BYTES_PER_PIXEL_CHANNEL`` x pixels x base
+    channels x (residual blocks / 2) per image, x 0.5 without a loss stack,
+    x 0.75 without a GAN, times the micro-batch. Coarse by design: it only
+    picks a side of 75% of the card's memory."""
+    c = cfg.autoencoder.channels
+    nrb = max(1, cfg.autoencoder.num_res_blocks)
+    per_img = ACTIVATION_BYTES_PER_PIXEL_CHANNEL * (cfg.image_size ** 2) * c * (nrb / 2.0)
+    if cfg.loss is None:
+        per_img *= 0.5
+    elif not cfg.use_adversarial:
+        per_img *= 0.75
+    micro = per_device_batch
+    if cfg.training is not None:
+        micro = max(1, per_device_batch // cfg.training.grad_accum_steps)
+    return micro * per_img / 1e9
+
 
 @dataclass
 class Trainer:
@@ -80,6 +132,10 @@ class Trainer:
     disc_kwargs: Optional[dict] = None
     fused_dbwd: bool = False
     fused_skip: bool = False
+    # None = auto: rematerialize only when the estimated activations would
+    # crowd the card's memory; True / False: the caller's decision
+    remat: Optional[bool] = None
+    per_device_batch: Optional[int] = None  # feeds the auto-remat estimate
 
     def __post_init__(self):
         cfg = self.cfg
@@ -87,6 +143,14 @@ class Trainer:
         self.device = torch.device(self.device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = default_device()
+        self._remat_auto = self.remat is None
+        if self.remat is None:
+            if self.per_device_batch is not None:
+                self.remat = (estimate_activation_gb(cfg, self.per_device_batch)
+                              > 0.75 * device_hbm_gb(self.device))
+            else:
+                # the batch unknown: the JAX package's rule
+                self.remat = cfg.image_size >= 128
         self.rank = world()[0]
         self.accum = int(t.grad_accum_steps)
         self.lr_sched = build_lr_schedule(self.learning_rate, self.steps_per_epoch,
@@ -125,7 +189,8 @@ class Trainer:
         cfg = self.cfg
         t = cfg.training
         model = VQVAE.from_config(cfg, dtype=self.compute_dtype, device=self.device,
-                                  generator=torch.Generator().manual_seed(self.seed))
+                                  generator=torch.Generator().manual_seed(self.seed),
+                                  remat=self.remat)
         model.train()
         state = TrainState(
             step=0, model=model,
@@ -140,7 +205,7 @@ class Trainer:
             state.disc = Discriminator(cfg.image_size, dtype=self.compute_dtype,
                                        fused_dbwd=self.fused_dbwd, fused_skip=self.fused_skip,
                                        seed=self.seed + 1, device=self.device,
-                                       **(self.disc_kwargs or {}))
+                                       remat=self.remat, **(self.disc_kwargs or {}))
             state.disc_optimizer = make_disc_optimizer(state.disc, t.betas, t.eps,
                                                        t.weight_decay)
         return state
@@ -239,6 +304,36 @@ class Trainer:
         state.usage_count.zero_()
         return state
 
+    def check_remat_gate(self, verbose: bool = True) -> Optional[str]:
+        """Audit the auto-remat decision against the card's peak memory since
+        the last reset (call once, after the first train step; JAX
+        ``loop.py:319-355``, the same thresholds and messages). Silent for a
+        decision the caller made, and off the card. Returns the warning
+        (also printed) or None when the gate looks right."""
+        if not self._remat_auto:
+            return None
+        read = memory_peak_and_total(self.device)
+        if not read or not read[0] or not read[1]:
+            return None
+        peak, limit = read
+        frac = peak / limit
+        msg = None
+        if not self.remat and frac > 0.92:
+            msg = (f"[remat-gate] auto-remat chose OFF but the first step "
+                   f"peaked at {peak / 1e9:.2f}/{limit / 1e9:.2f} GB "
+                   f"({frac:.0%}) — one allocator hiccup from OOM. Consider "
+                   "remat=True (or a smaller per-device batch); "
+                   "estimate_activation_gb under-estimated this config.")
+        elif self.remat and frac < 0.45:
+            msg = (f"[remat-gate] auto-remat chose ON but the first step "
+                   f"peaked at only {peak / 1e9:.2f}/{limit / 1e9:.2f} GB "
+                   f"({frac:.0%}) — the ~18% recompute tax is likely "
+                   "unnecessary. Consider remat=False; "
+                   "estimate_activation_gb over-estimated this config.")
+        if msg and verbose:
+            print(msg)
+        return msg
+
 
 def _to_float01(images) -> np.ndarray:
     """uint8 [0,255] or float [0,1] batch -> float [0,1] on the host (panels)."""
@@ -282,7 +377,8 @@ def run_training(cfg: Config, train_loader, val_loader, *, seed: int, learning_r
             "(minibatch-std group size in the StyleGAN discriminator)")
     trainer = Trainer(cfg=cfg, learning_rate=learning_rate, seed=seed,
                       steps_per_epoch=steps_per_epoch, compute_dtype=compute_dtype,
-                      device=device, fused_dbwd=fused_dbwd, fused_skip=fused_skip)
+                      device=device, fused_dbwd=fused_dbwd, fused_skip=fused_skip,
+                      per_device_batch=per_dev)
     try:
         state = _run_epochs(trainer, train_loader, val_loader, save_dir=save_dir,
                             run_name=run_name, save_every_n_epochs=save_every_n_epochs,
@@ -314,6 +410,8 @@ def _run_epochs(trainer: Trainer, train_loader, val_loader, *, save_dir, run_nam
         if trainer.rank == 0:
             print(f"[INFO] resumed from {resume_path} at epoch {start_epoch}")
 
+    if trainer.device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(trainer.device)   # the gate reads the first step's
     for epoch in range(start_epoch, max_epochs):
         train_loader.set_epoch(epoch)
         t0 = time.time()
@@ -321,6 +419,8 @@ def _run_epochs(trainer: Trainer, train_loader, val_loader, *, save_dir, run_nam
         sums = None
         for batch_index, batch in enumerate(train_loader):
             state, metrics = trainer.train_step(state, batch, epoch)
+            if epoch == start_epoch and batch_index == 0:
+                trainer.check_remat_gate()   # waits for the step's work on the card
             n_img += batch["image"].shape[0]
             n_batches += 1
             sums = metrics if sums is None else {k: sums[k] + v for k, v in metrics.items()}
