@@ -191,7 +191,18 @@ exit and no result line:
    config at ``grad_accum_steps 1`` with the smallest per-card batch whose
    estimate exceeds 75% of the card (two optimizer steps, pre-GAN, packed
    data written here): the Trainer decides remat on by itself, and
-   ``check_remat_gate``'s reading of the first step is printed.
+   ``check_remat_gate``'s reading of the first step is printed;
+16. bench: the headline benchmark (``vqvae_tpu_torch.bench``) at full width,
+   bf16. (a) its five legs in process, short (``BENCH_SHORT``: one warm-up
+   step, one window of two): the flagship at ``VQGAN_BENCH_ACCUM``
+   ``BENCH_ACCUM`` and ``gan_b32_plain``, both with the D's backward fused
+   (B3 / B4 launched 12 times per R1 micro-batch, 18 per other), then
+   ``standard_vqvae`` (B1 once per step), ``ema_vqvae`` (B2 once per step)
+   and ``entropy_vqvae`` (no kernel): every metric finite, exactly one R1
+   step (host step 0) in each GAN leg and none elsewhere; images/s and the
+   peak of each. (b) ``python -m vqvae_tpu_torch.bench --leg
+   standard_vqvae`` at full length in a process of its own: its JSON line
+   parses, with a positive value, no R1 step and this card.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a visible CUDA device it exits
@@ -222,7 +233,7 @@ import numpy as np
 import torch
 import yaml
 
-from vqvae_tpu_torch import (bench_breakdown, bench_infer, bench_input, load_config,
+from vqvae_tpu_torch import (bench, bench_breakdown, bench_infer, bench_input, load_config,
                              probe_max_resolution, profile_tokenizer)
 from vqvae_tpu_torch.config import parse_config
 from vqvae_tpu_torch.cli import evaluate as cli_evaluate
@@ -322,6 +333,9 @@ REMAT_CALIBRATION = (32, 64)  # remat (c): the micro-batches of the memory slope
 REMAT_STRIDE = 32           # remat (c): the capacity search's step, (d)'s batch grid
 REMAT_MAX_BATCH = 256       # remat (c): where the search stops
 REMAT_CLI_VAL_IMAGES = 8    # remat (d)
+BENCH_ACCUM = 2             # bench (a): the flagship's micro-batches of 32 per step
+BENCH_SHORT = {"warmup": 1, "steps": 2, "windows": 1}   # bench (a): host steps 0 (R1) to 2
+BENCH_TIMEOUT = 600         # s, bench (b)'s process
 BENCH_FP32_STEPS = 4        # serve (e): calls per window of the fp32 bench_infer run
 GRID_SHARE = 1e-10          # serve (f): float64 card vs CPU, share of the largest entry
 # published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): fp32 on the
@@ -3199,6 +3213,76 @@ def phase_remat(card: str, device, tmp: Path) -> dict:
     return dict(launches)
 
 
+def _bench_legs(card: str, device) -> dict:
+    """Bench (a): the five legs in process, short, the GAN legs with the D's
+    backward fused. -> the launches of all five."""
+    n_blocks = len(range(int(math.log2(bench.flagship_raw(True)[1])), 2, -1))
+    env = {"VQGAN_BENCH_ACCUM": str(BENCH_ACCUM), "VQVAE_TPU_FUSED_DBWD": "1",
+           "VQVAE_TPU_FUSED_SKIP": "1"}
+    legs = [("flagship", lambda: bench.bench_flagship(device, **BENCH_SHORT), BENCH_ACCUM),
+            ("gan_b32_plain", lambda: bench.bench_gan_plain(device, **BENCH_SHORT), 1)]
+    legs += [(leg, functools.partial(bench.bench_plain, q_type, device, **BENCH_SHORT), None)
+             for leg, q_type in bench.PLAIN_LEGS.items()]
+    kernel = {"standard_vqvae": "nearest_codes", "ema_vqvae": "nearest_codes_stats"}
+    n_steps = BENCH_SHORT["warmup"] + BENCH_SHORT["steps"] * BENCH_SHORT["windows"]
+    launches = collections.Counter()
+    for leg, fn, accum in legs:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        before = _launches()
+        with mock.patch.dict(os.environ, env):
+            out = fn()
+        count = _since(before)
+        launches.update(count)
+        want = dict.fromkeys(count, 0)
+        if accum:   # a GAN leg: host step 0 takes R1
+            per_step = [accum * (2 if r1 else 3) * n_blocks for r1 in
+                        [True] + [False] * (n_steps - 1)]
+            want.update(blur_t_gate=sum(per_step), skip_fanout_bwd=sum(per_step))
+        elif leg in kernel:
+            want[kernel[leg]] = n_steps
+        print(f"time [{card}]: bench (a) {leg}, bf16, batch {out['batch']}"
+              + (f" ({accum} x {out['batch'] // accum})" if accum else "")
+              + f", {n_steps} steps (R1 at host steps {out['r1_at']}): {out['value']:.2f} "
+              f"images/s over {BENCH_SHORT['steps']} steps ({out['windows_s'][0]:.3f} s), peak "
+              f"{out['peak_gib']:.2f} GiB; launches {count}; the leg took "
+              f"{time.perf_counter() - t0:.1f} s")
+        check(out["finite"], f"bench (a) {leg}: every metric finite")
+        r1_at = [0] if accum else []
+        check(out["r1_at"] == r1_at and out["r1_steps"] == 0,
+              f"bench (a) {leg}: R1 at host steps {r1_at}, none in the window")
+        check(count == want, f"bench (a) {leg}: launches {count}, expected {want}")
+    return dict(launches)
+
+
+def _bench_process(card: str) -> None:
+    """Bench (b): ``python -m vqvae_tpu_torch.bench --leg standard_vqvae`` at
+    full length in a process of its own."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "vqvae_tpu_torch.bench", "--leg",
+                        "standard_vqvae"], cwd=ROOT, capture_output=True, text=True,
+                       timeout=BENCH_TIMEOUT)
+    if r.returncode != 0:
+        print(r.stderr[-6000:])
+    check(r.returncode == 0, f"bench (b): exit code {r.returncode}")
+    record = json.loads(r.stdout.strip().splitlines()[-1])
+    print(f"time [{card}]: bench (b) {json.dumps(record)}; the process took "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(record["leg"] == "standard_vqvae" and math.isfinite(record["value"])
+          and record["value"] > 0 and record["r1_steps"] == 0 and record["card"] == card,
+          "bench (b): the leg's line parses, with a positive value on this card")
+
+
+def phase_bench(card: str, device) -> dict:
+    """The headline benchmark on the card: (a) its legs in process, short;
+    (b) one leg as the orchestrator starts it. -> (a)'s launches per
+    kernel."""
+    launches = _bench_legs(card, device)
+    torch.cuda.empty_cache()
+    _bench_process(card)
+    return launches
+
+
 def _record(name, source, replaces, launches, max_abs_err, shape, t) -> dict:
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": max_abs_err, "ms": t["kernel"],
@@ -3263,13 +3347,18 @@ def main() -> None:
         remat = phase_remat(card, device, tmp)
         print(f"time [{card}]: remat: the phase took {time.perf_counter() - t_remat:.1f} s; "
               f"launches {remat}")
+    t_bench = time.perf_counter()
+    benched = phase_bench(card, device)
+    print(f"time [{card}]: bench: the phase took {time.perf_counter() - t_bench:.1f} s; "
+          f"launches {benched}")
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [
         # launches: the tokenizer path's, the training path's, the train
         # CLI's (cli_launches: the last alone, counted from 0 for each of its
         # legs), the eval and token-export CLIs' (eval_launches), the ddp
         # phase's, every rank's (ddp_launches), the serve phase's, every
-        # rank's (serve_launches) and the remat phase's (remat_launches);
+        # rank's (serve_launches), the remat phase's (remat_launches) and the
+        # bench phase's (bench_launches);
         # max_abs_err:
         # the largest float64 score gap between the kernel's and the plain
         # version's pick over every compared row (0.0 where all agree)
@@ -3279,11 +3368,12 @@ def main() -> None:
         _record("nearest_codes", "vqvae_tpu_torch/csrc/nearest_codes.cu",
                 "vqvae_tpu/ops/vq_pallas.py:141",
                 b1_tokenizer + b1_train + cli["nearest_codes"] + b1_eval
-                + ddp.get("nearest_codes", 0) + b1_serve + remat["nearest_codes"],
+                + ddp.get("nearest_codes", 0) + b1_serve + remat["nearest_codes"]
+                + benched["nearest_codes"],
                 max(kernel_gap, slice_gap, large_gap), (8192, 1024, 256), b1) | _scan_bound(b1)
         | {"cli_launches": cli["nearest_codes"], "eval_launches": b1_eval,
            "ddp_launches": ddp.get("nearest_codes", 0), "serve_launches": b1_serve,
-           "remat_launches": remat["nearest_codes"],
+           "remat_launches": remat["nearest_codes"], "bench_launches": benched["nearest_codes"],
            # the serve phase's probe: B1 on the latents of one image at the
            # card's resolution ceiling
            "ceiling_shape": {"shape": b1_large["shape"], "ms": b1_large["kernel"],
@@ -3295,31 +3385,36 @@ def main() -> None:
         _record("nearest_codes_stats", "vqvae_tpu_torch/csrc/nearest_codes_stats.cu",
                 "vqvae_tpu/ops/vq_pallas.py:89",
                 b2_train + cli["nearest_codes_stats"] + ddp.get("nearest_codes_stats", 0)
-                + remat["nearest_codes_stats"], stats_err, STATS_SHAPES[0], b2) | _scan_bound(b2)
+                + remat["nearest_codes_stats"] + benched["nearest_codes_stats"], stats_err,
+                STATS_SHAPES[0], b2) | _scan_bound(b2)
         | {"cli_launches": cli["nearest_codes_stats"],
            "ddp_launches": ddp.get("nearest_codes_stats", 0),
-           "remat_launches": remat["nearest_codes_stats"]},
+           "remat_launches": remat["nearest_codes_stats"],
+           "bench_launches": benched["nearest_codes_stats"]},
         # launches: the GAN path's 8 train steps, the CLI's leg (c), the ddp
-        # phase's, the tools phase's bench_breakdown (tools_launches) and the
-        # remat phase's GAN steps (remat_launches); max_abs_err: the largest
+        # phase's, the tools phase's bench_breakdown (tools_launches), the
+        # remat phase's GAN steps (remat_launches) and the bench phase's GAN
+        # legs (bench_launches); max_abs_err: the largest
         # |kernel - plain| over every compared shape, fp32 and bf16 (bf16 is
         # one bf16 ulp); times at the first block's shape in bf16, the
         # training compute dtype
         _record("blur_t_gate", "vqvae_tpu_torch/csrc/fused_dbwd.cu",
                 "vqvae_tpu/ops/fused_dbwd.py:220",
                 b3_gan + cli["blur_t_gate"] + ddp.get("blur_t_gate", 0) + tools["blur_t_gate"]
-                + remat["blur_t_gate"], b3_err, b256, dbwd[("B3", torch.bfloat16, b256)])
+                + remat["blur_t_gate"] + benched["blur_t_gate"], b3_err, b256,
+                dbwd[("B3", torch.bfloat16, b256)])
         | {"dtype": "bfloat16", "cli_launches": cli["blur_t_gate"],
            "ddp_launches": ddp.get("blur_t_gate", 0), "tools_launches": tools["blur_t_gate"],
-           "remat_launches": remat["blur_t_gate"]},
+           "remat_launches": remat["blur_t_gate"], "bench_launches": benched["blur_t_gate"]},
         _record("skip_fanout_bwd", "vqvae_tpu_torch/csrc/fused_dbwd.cu",
                 "vqvae_tpu/ops/fused_dbwd.py:386",
                 b4_gan + cli["skip_fanout_bwd"] + ddp.get("skip_fanout_bwd", 0)
-                + tools["skip_fanout_bwd"] + remat["skip_fanout_bwd"], b4_err, b256,
-                dbwd[("B4", torch.bfloat16, b256)])
+                + tools["skip_fanout_bwd"] + remat["skip_fanout_bwd"]
+                + benched["skip_fanout_bwd"], b4_err, b256, dbwd[("B4", torch.bfloat16, b256)])
         | {"dtype": "bfloat16", "cli_launches": cli["skip_fanout_bwd"],
            "ddp_launches": ddp.get("skip_fanout_bwd", 0),
-           "tools_launches": tools["skip_fanout_bwd"], "remat_launches": remat["skip_fanout_bwd"]},
+           "tools_launches": tools["skip_fanout_bwd"], "remat_launches": remat["skip_fanout_bwd"],
+           "bench_launches": benched["skip_fanout_bwd"]},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -44,7 +44,7 @@ assert {"vqvae_tpu_torch.cli.train", "vqvae_tpu_torch.cli.create_packed_dataset"
         "vqvae_tpu_torch.ops.misc_ops", "vqvae_tpu_torch.bench_infer",
         "vqvae_tpu_torch.probe_max_resolution", "vqvae_tpu_torch.eval.quality_parity",
         "vqvae_tpu_torch.cli.quality_parity", "vqvae_tpu_torch.bench_input",
-        "vqvae_tpu_torch.bench_breakdown"} <= set(names)
+        "vqvae_tpu_torch.bench_breakdown", "vqvae_tpu_torch.bench"} <= set(names)
 from vqvae_tpu_torch.models.lpips import LPIPS
 for net in ("alex", "squeeze"):
     LPIPS(net, device="cpu")
@@ -59,7 +59,7 @@ def test_import_loads_no_jax():
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n_modules, loaded = out.stdout.split(maxsplit=1)
-    assert int(n_modules) >= 58
+    assert int(n_modules) >= 59
     assert loaded.strip() == "[]"
 
 
@@ -242,19 +242,28 @@ def test_eval_entry_points_ask_for_the_card_by_default(monkeypatch, tmp_path):
 
 
 def test_tool_entry_points_ask_for_the_card_by_default():
-    """The quality-parity chain and the step decomposition default to
-    ``--device cuda``, and the decomposition raises without a card; the
-    input bench touches no device."""
-    from vqvae_tpu_torch import bench_breakdown, bench_input
+    """The quality-parity chain, the step decomposition and the headline
+    benchmark (its orchestrator and each leg) default to ``--device cuda``,
+    and the decomposition and the benchmark raise without a card; the input
+    bench touches no device."""
+    import inspect
+
+    from vqvae_tpu_torch import bench, bench_breakdown, bench_input
     from vqvae_tpu_torch.cli import quality_parity
 
     assert quality_parity.parse_args([]).device == "cuda"
     assert bench_breakdown.parse_args([]).device == "cuda"
+    assert bench.parse_args([]).device == "cuda"
+    for fn in (bench.bench_flagship, bench.bench_gan_plain, bench.bench_plain):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
     assert "device" not in vars(bench_input.parse_args([]))
     if torch.cuda.is_available():
         return
     with pytest.raises(RuntimeError, match="--device cpu"):
         bench_breakdown.main([])
+    for argv in ([], ["--leg", "flagship"], ["--leg", "standard_vqvae"]):
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            bench.main(argv)
 
 
 _C_TYPES = {"double": ctypes.c_double, "void*": ctypes.c_void_p, "const char*": ctypes.c_char_p,

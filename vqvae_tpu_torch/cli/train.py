@@ -92,7 +92,7 @@ def _train(args):
     from vqvae_tpu_torch.config import load_config
     from vqvae_tpu_torch.data.dataset import get_loaders
     from vqvae_tpu_torch.parallel import dist
-    from vqvae_tpu_torch.train.loop import run_training
+    from vqvae_tpu_torch.train.loop import fused_backward_from_env, run_training
     from vqvae_tpu_torch.utils.logging import MetricLogger
 
     rank, world = dist.world()
@@ -128,9 +128,7 @@ def _train(args):
             save_every_n_epochs=int(args.save_every_n_epochs), logger=logger,
             resume_path=args.loading_path,
             compute_dtype=torch.bfloat16 if args.precision == 'bf16' else torch.float32,
-            max_epochs=args.max_epochs, device=device,
-            fused_dbwd=os.environ.get("VQVAE_TPU_FUSED_DBWD", "0") == "1",
-            fused_skip=os.environ.get("VQVAE_TPU_FUSED_SKIP", "0") == "1")
+            max_epochs=args.max_epochs, device=device, **fused_backward_from_env())
     finally:
         logger.finish()
 

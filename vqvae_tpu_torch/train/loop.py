@@ -43,6 +43,7 @@ logs, draws panels (from its own rows) and writes checkpoints.
 
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass
 from typing import Optional, Union
@@ -73,6 +74,14 @@ from vqvae_tpu_torch.utils.logging import MetricLogger, make_recon_panel
 # package's 40.0 models XLA's buffers on a v5e; eager PyTorch keeps more
 # intermediates (a deliberate divergence: the constant models the runtime).
 ACTIVATION_BYTES_PER_PIXEL_CHANNEL = 150.0
+
+
+def fused_backward_from_env() -> dict:
+    """The Trainer's ``fused_dbwd`` / ``fused_skip`` from the JAX package's
+    switches: ``VQVAE_TPU_FUSED_DBWD`` / ``VQVAE_TPU_FUSED_SKIP`` set to
+    ``1``; anything else is off."""
+    return {"fused_dbwd": os.environ.get("VQVAE_TPU_FUSED_DBWD", "0") == "1",
+            "fused_skip": os.environ.get("VQVAE_TPU_FUSED_SKIP", "0") == "1"}
 
 
 def device_hbm_gb(device: torch.device) -> float:
