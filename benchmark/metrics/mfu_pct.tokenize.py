@@ -1,0 +1,9 @@
+"""``mfu_pct.tokenize``: the model's FLOPs per image (``flops.py``, counted on
+the plain reference) times the traced window's images per second, over the
+H100's dense bf16 peak, in %."""
+
+from benchmark.metrics._mfu import mfu
+
+
+def read(trace):
+    return mfu(trace, "tokenize")
