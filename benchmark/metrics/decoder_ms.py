@@ -1,0 +1,11 @@
+"""``decoder_ms``: the mean per request of the window of the device ms of the
+span ``decoder`` under ``api.reconstruct_from_tokens``."""
+
+from benchmark.metrics._spans import mean, window_calls
+
+
+def read(trace):
+    calls = window_calls(trace, "detokenize", "api.reconstruct_from_tokens")
+    if calls is None:
+        return None
+    return mean(c.ms(("decoder",)) for c in calls)

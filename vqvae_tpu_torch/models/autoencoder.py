@@ -6,6 +6,11 @@ weights both ways. The plain forms are carried: the JAX package's exact TPU
 rewrites (pool folded into a stride-2 conv, upsample folded into an
 lhs-dilated conv, the fused GN-SiLU VJP, the padded output conv) are not.
 
+Spans (``utils/introspect.named_scope``): ``encoder`` and ``decoder``
+around each module's forward, and ``norm_act`` in ``norm_act``, the helper
+every GroupNorm -> SiLU pair goes through (the one place a fused kernel
+would replace).
+
 ``remat=True`` checkpoints every ``ResBlock`` (the JAX modules' ``nn.remat``,
 ``vqvae_tpu/models/autoencoder.py:527,563``): its activations are recomputed
 in the backward pass instead of being kept. The flag lives on the block, so
@@ -28,6 +33,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+from vqvae_tpu_torch.utils.introspect import named_scope
 
 
 class Conv2d(nn.Conv2d):
@@ -98,6 +105,12 @@ class GroupNorm(nn.Module):
         return (xf * self.weight + self.bias).to(self.dtype)
 
 
+def norm_act(norm: GroupNorm, x: torch.Tensor) -> torch.Tensor:
+    """SiLU(norm(x)), under the span ``norm_act``."""
+    with named_scope("norm_act"):
+        return F.silu(norm(x))
+
+
 class ResBlock(nn.Module):
     """Pre-activation residual block: (GN -> SiLU -> 3x3 conv) x 2, bias-free
     convs, 1x1 shortcut when channels change (reference autoencoder.py:42-77)."""
@@ -121,8 +134,8 @@ class ResBlock(nn.Module):
         return self._forward(x)
 
     def _forward(self, x):
-        residual = self.conv1(F.silu(self.norm1(x)))
-        residual = self.conv2(F.silu(self.norm2(residual)))
+        residual = self.conv1(norm_act(self.norm1, x))
+        residual = self.conv2(norm_act(self.norm2, residual))
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + residual
@@ -174,9 +187,10 @@ class Encoder(nn.Module):
                                generator=generator)
 
     def forward(self, x):
-        x = self.conv_in(x.to(self.dtype))
-        x = self.final_residual(self.blocks(x))
-        return self.conv_out(F.silu(self.norm(x))).float()
+        with named_scope("encoder", images=x.shape[0]):
+            x = self.conv_in(x.to(self.dtype))
+            x = self.final_residual(self.blocks(x))
+            return self.conv_out(norm_act(self.norm, x)).float()
 
 
 class Decoder(nn.Module):
@@ -207,6 +221,7 @@ class Decoder(nn.Module):
         self.conv_out = Conv2d(ch, 3, 3, bias=True, dtype=dtype, generator=generator)
 
     def forward(self, x):
-        x = self.conv_in(x.to(self.dtype))
-        x = self.blocks(self.initial_residual(x))
-        return torch.tanh(self.conv_out(F.silu(self.norm(x))).float())
+        with named_scope("decoder", images=x.shape[0]):
+            x = self.conv_in(x.to(self.dtype))
+            x = self.blocks(self.initial_residual(x))
+            return torch.tanh(self.conv_out(norm_act(self.norm, x)).float())

@@ -37,6 +37,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.autograd.function import once_differentiable
 
+from vqvae_tpu_torch.utils.introspect import named_scope
+
 _SHIFT = (-0.030, -0.088, -0.188)
 _SCALE = (0.458, 0.448, 0.450)
 
@@ -229,16 +231,19 @@ class LPIPS(nn.Module):
         return ((im.float() - shift) / scale).permute(0, 3, 1, 2).contiguous()
 
     def forward(self, x: torch.Tensor, y: torch.Tensor, reduce: bool = True) -> torch.Tensor:
-        feat_x = self.net(self._z_score(x))
-        feat_y = self.net(self._z_score(y))
-        total = 0.0
-        for i, (fx, fy) in enumerate(zip(feat_x, feat_y)):
-            diff = (fx - fy) ** 2
-            lin = getattr(self, f"lin{i}")[:, 0].to(diff.dtype).float()
-            # products of the tap-dtype values, summed in fp32
-            weighted = (diff.float() * lin[None, :, None, None]).sum(1)
-            total = total + weighted.mean((1, 2))
-        return total.mean() if reduce else total
+        """Under the span ``lpips`` (the forward; the backward runs in the
+        caller's)."""
+        with named_scope("lpips", images=x.shape[0]):
+            feat_x = self.net(self._z_score(x))
+            feat_y = self.net(self._z_score(y))
+            total = 0.0
+            for i, (fx, fy) in enumerate(zip(feat_x, feat_y)):
+                diff = (fx - fy) ** 2
+                lin = getattr(self, f"lin{i}")[:, 0].to(diff.dtype).float()
+                # products of the tap-dtype values, summed in fp32
+                weighted = (diff.float() * lin[None, :, None, None]).sum(1)
+                total = total + weighted.mean((1, 2))
+            return total.mean() if reduce else total
 
 
 def lpips_weights_path(net_type: str) -> Path:

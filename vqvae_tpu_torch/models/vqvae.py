@@ -8,6 +8,11 @@ order. The modules inside run NCHW. The tokenizer API (``get_tokens``,
 ``quantize``, ``reconstruct``, ``reconstruct_from_tokens``) runs under
 ``torch.inference_mode()``.
 
+Spans (``utils/introspect.named_scope``): ``quantizer`` around the
+quantizer's call, ``api.get_tokens`` and ``api.reconstruct_from_tokens``
+around those calls (``quantizer.lookup`` around the latter's codebook
+lookup); ``encoder`` and ``decoder`` are the modules' own.
+
 ``remat=True`` checkpoints every residual block of the encoder and decoder
 in training (``models/autoencoder.py``); it changes no value and no key.
 
@@ -27,6 +32,7 @@ from vqvae_tpu_torch.config import Config
 from vqvae_tpu_torch.models.autoencoder import Decoder, Encoder
 from vqvae_tpu_torch.models.preprocess import denormalize, preprocess_batch
 from vqvae_tpu_torch.models.quantizers import codes_to_vec, make_quantizer
+from vqvae_tpu_torch.utils.introspect import named_scope
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -77,10 +83,11 @@ class VQVAE(nn.Module):
         return model.to(device).eval()
 
     def _quantize(self, z, train, mask=None, temp=None, kl_cost=None, generator=None):
-        if self.quantizer_type == "gumbel":
-            return self.quantizer(z, train=train, mask=mask, temp=temp, kl_cost=kl_cost,
-                                  generator=generator)
-        return self.quantizer(z, train=train, mask=mask)
+        with named_scope("quantizer", images=z.shape[0]):
+            if self.quantizer_type == "gumbel":
+                return self.quantizer(z, train=train, mask=mask, temp=temp, kl_cost=kl_cost,
+                                      generator=generator)
+            return self.quantizer(z, train=train, mask=mask)
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 mask: Optional[torch.Tensor] = None, temp: Optional[float] = None,
@@ -102,10 +109,12 @@ class VQVAE(nn.Module):
                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """[0,1] NHWC images -> (B, S) int32 codebook indices. Gumbel: noisy
         argmax of the raw encoder channels unless ``deterministic``."""
-        z = self.encoder(_nchw(preprocess_batch(images)))
-        if self.quantizer_type == "gumbel":
-            return self.quantizer.vec_to_codes(z, deterministic, generator)
-        return self.quantizer.vec_to_codes(z)
+        with named_scope("api.get_tokens", images=images.shape[0]):
+            z = self.encoder(_nchw(preprocess_batch(images)))
+            with named_scope("quantizer", images=z.shape[0]):
+                if self.quantizer_type == "gumbel":
+                    return self.quantizer.vec_to_codes(z, deterministic, generator)
+                return self.quantizer.vec_to_codes(z)
 
     @torch.inference_mode()
     def quantize(self, images: torch.Tensor) -> torch.Tensor:
@@ -124,11 +133,13 @@ class VQVAE(nn.Module):
     @torch.inference_mode()
     def reconstruct_from_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
         """(B, S) tokens -> [0,1] NHWC reconstructions."""
-        quantized = codes_to_vec(self.quantizer.codebook.weight, tokens)
-        b, s, d = quantized.shape
-        hw = int(round(s ** 0.5))
-        quantized = quantized.reshape(b, hw, hw, d)
-        return denormalize(_nhwc(self.decoder(_nchw(quantized))))
+        with named_scope("api.reconstruct_from_tokens", images=tokens.shape[0]):
+            with named_scope("quantizer.lookup"):
+                quantized = codes_to_vec(self.quantizer.codebook.weight, tokens)
+            b, s, d = quantized.shape
+            hw = int(round(s ** 0.5))
+            quantized = quantized.reshape(b, hw, hw, d)
+            return denormalize(_nhwc(self.decoder(_nchw(quantized))))
 
     def encode(self, x: torch.Tensor) -> torch.Tensor:
         """Normalized NHWC images -> raw NHWC encoder latents (fp32)."""

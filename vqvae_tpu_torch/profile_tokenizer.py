@@ -12,11 +12,7 @@ as in ``chip_smoke.py``. For each of ``get_tokens``,
 (augmentations on, as ``train.py`` runs it; the GAN step at
 ``epoch=start_epoch``, R1 and not, with the fused D backward and without)
 at batch ``BATCH`` it makes ``WARMUP`` calls, then records ``CALLS`` calls
-in one ``torch.profiler`` window. Kernel names do not say which module
-launched a convolution, so the GAN step's two loss networks are also
-profiled alone at the step's shapes: LPIPS-VGG's forward on both images
-and backward to the reconstructions, and the discriminator's first-order
-forward and backward passes of a non-R1 step. Per call it prints:
+in one ``torch.profiler`` window. Per call it prints:
 
 - ``window``: the time between two CUDA events around the window;
 - ``kernels``: the summed device time of every kernel, memcpy and memset
@@ -26,7 +22,12 @@ forward and backward passes of a non-R1 step. Per call it prints:
 - ``idle``: ``1 - busy / window``, the share of the window the card was
   idle, with the profiler on;
 - the kernel time by kind (``KINDS``, matched on the kernel's name), then
-  the ``TOP`` kernels by time.
+  the ``TOP`` kernels by time;
+- for the train steps (the GAN part and the ``step`` part), the device
+  time by span, from the window's span log (``utils/introspect``): each
+  span path (``train.step/gan.d_real_backward``, ...), its device ms and
+  its count per call. Kernel names do not say which module launched a
+  convolution; the spans do.
 
 Times are per call (window / ``CALLS``). The first line is the card's
 name and power limit from ``nvidia-smi``. ``--remat`` is every profiled
@@ -54,6 +55,8 @@ from typing import Optional
 
 import torch
 from torch.profiler import ProfilerActivity, profile
+
+from vqvae_tpu_torch.utils.introspect import span_log
 
 CONFIGS = Path(__file__).resolve().parent.parent / "example_confs"
 CONFIG = CONFIGS / "standard_vqvae.yaml"
@@ -143,8 +146,26 @@ def report(label: str, window_ms: float, busy: float, per_kernel: dict, card: st
         print(f"  {ms / CALLS:9.2f} ms {count // CALLS:4d}x  {kind_of(name):16s} {name[:110]}")
 
 
+def report_spans(spans: list) -> None:
+    """Device ms and count per call of each span path of the window's span
+    log (``introspect.span_log()``), in the order they first open; nothing
+    where the log does not hold ``CALLS`` calls."""
+    if sum(s["parent"] is None for s in spans) != CALLS:
+        print("  (no span log of this window)")
+        return
+    paths, totals = {}, {}
+    for s in spans:   # a parent comes before its children
+        parent = s["parent"]
+        paths[s["index"]] = s["name"] if parent is None else f"{paths[parent]}/{s['name']}"
+        total = totals.setdefault(paths[s["index"]], [0, 0.0])
+        total[0] += 1
+        total[1] += s["device_ms"]
+    for path, (count, ms) in totals.items():
+        print(f"  {ms / CALLS:9.2f} ms {count / CALLS:5.1f}x  span {path}")
+
+
 def profile_gan(device, card: str, remat: Optional[bool] = False) -> None:
-    """The GAN step on gumbel_vqgan.yaml, then its LPIPS and D alone."""
+    """The GAN step on gumbel_vqgan.yaml: kernels, then device time by span."""
     from vqvae_tpu_torch import load_config
     from vqvae_tpu_torch.train.loop import Trainer
 
@@ -167,30 +188,7 @@ def profile_gan(device, card: str, remat: Optional[bool] = False) -> None:
             label = (f"train_step gan {'R1' if r1 else 'non-R1'} "
                      f"{'fused' if fused else 'plain'} D backward {name} batch {BATCH}")
             report(label, *profile_call(step), card)
-        state.disc.set_fused(True, True)
-
-        images = (batch["image"] * 2 - 1).detach()
-        recon = images.flip(0).clone()
-
-        def lpips_call():
-            y = recon.clone().requires_grad_(True)
-            trainer.losses.lpips(images, y).backward()
-
-        report(f"LPIPS-VGG forward x2 + backward {name} batch {BATCH}",
-               *profile_call(lpips_call), card)
-        real = images.permute(0, 3, 1, 2).contiguous()
-        fake = recon.permute(0, 3, 1, 2).contiguous()
-        d_params = list(state.disc.parameters())
-
-        def disc_call():
-            x = fake.clone().requires_grad_(True)
-            logits = state.disc(x)
-            logits.sum().backward(inputs=d_params, retain_graph=True)
-            logits.sum().backward(inputs=[x])
-            state.disc(real).sum().backward(inputs=d_params)
-
-        report(f"D first-order: fake forward + 2 backward, real forward + backward, "
-               f"fused, {name} batch {BATCH}", *profile_call(disc_call), card)
+            report_spans(span_log())
         del trainer, state
         torch.cuda.empty_cache()
 
@@ -231,6 +229,7 @@ def profile_step(variant: str, device, card: str, remat: Optional[bool] = False)
            f"{'s' if sum(window) != 1 else ''} "
            + (", ".join(str(i + 1) for i, r in enumerate(window) if r) or "none")
            + f" of {CALLS}", *timings, card)
+    report_spans(span_log())
     del trainer, state
     torch.cuda.empty_cache()
     return window

@@ -64,7 +64,7 @@ from vqvae_tpu_torch.train.optim import make_ae_optimizer, make_disc_optimizer
 from vqvae_tpu_torch.train.schedules import build_gumbel_schedules, build_lr_schedule
 from vqvae_tpu_torch.train.state import TrainState
 from vqvae_tpu_torch.utils.checkpoint import CheckpointManager
-from vqvae_tpu_torch.utils.introspect import check_replication
+from vqvae_tpu_torch.utils.introspect import check_replication, named_scope
 from vqvae_tpu_torch.utils.logging import MetricLogger, make_recon_panel
 
 # Bytes of activations kept per pixel x base channel of a 256^2 GAN train
@@ -253,13 +253,14 @@ class Trainer:
         NHWC batch. The state is updated in place and returned."""
         gan = self.gan_active(epoch)
         r1 = self.r1_due(epoch)
-        self.host_step += 1
-        temp, kl_cost = self._gumbel(state.step)
-        metrics = steps.train_step(
-            state, self._images(batch), self.lr_sched(state.step), self.augment,
-            self.cfg.image_size, losses=self.losses, gan=gan, r1=r1,
-            d_lr=self.lr_sched(state.disc_step + self.d_offset) if gan else None,
-            temp=temp, kl_cost=kl_cost, accum=self.accum)
+        with named_scope("train.step", step=state.step, r1=r1, images=len(batch["image"])):
+            self.host_step += 1
+            temp, kl_cost = self._gumbel(state.step)
+            metrics = steps.train_step(
+                state, self._images(batch), self.lr_sched(state.step), self.augment,
+                self.cfg.image_size, losses=self.losses, gan=gan, r1=r1,
+                d_lr=self.lr_sched(state.disc_step + self.d_offset) if gan else None,
+                temp=temp, kl_cost=kl_cost, accum=self.accum)
         return state, metrics
 
     def eval_step(self, state: TrainState, batch, epoch: int):

@@ -31,6 +31,12 @@
   reference, which never accumulates). Metrics are micro-batch means, usage
   their sum; every step reports the JAX step's nine metrics, 0 where a
   term is absent.
+- Spans (``utils/introspect.named_scope``), per micro-batch: ``gan.d_real``,
+  ``gan.r1_grad`` (R1 steps), ``gan.d_real_backward``, ``ae.forward``,
+  ``gan.d_fake`` (the fake D forward, the G and D losses, adaptive lambda),
+  ``gan.d_fake_backward`` and ``ae.backward``; then ``optim`` (the
+  reductions, both AdamW steps) and ``usage`` (the usage count). A module's
+  backward runs inside the phase span that calls it.
 - Eval: no augmentations, no optimizer, no EMA update; masked per-sample
   means, so zero-padded rows of a partial final batch count for nothing;
   with the GAN active, the per-sample G and D losses of the plain D.
@@ -62,6 +68,7 @@ from vqvae_tpu_torch.models.quantizers import count_code_usage
 from vqvae_tpu_torch.parallel.dist import all_reduce_mean_, all_reduce_sum_
 from vqvae_tpu_torch.train.optim import set_lr
 from vqvae_tpu_torch.train.state import TrainState
+from vqvae_tpu_torch.utils.introspect import named_scope
 
 
 @dataclass
@@ -118,43 +125,52 @@ def _micro_step(state: TrainState, raw_images: torch.Tensor, augment: bool, imag
     if gan:
         adv = losses.adv
         d_params = list(state.disc.parameters())
-        real = _nchw(images).detach().requires_grad_(r1)
-        logits_real = state.disc(real, fused=not r1)
-        d_real = discriminator_loss_half(logits_real, True, adv.loss_type).mean()
+        with named_scope("gan.d_real"):
+            real = _nchw(images).detach().requires_grad_(r1)
+            logits_real = state.disc(real, fused=not r1)
+            d_real = discriminator_loss_half(logits_real, True, adv.loss_type).mean()
         if r1:
-            (grad,) = torch.autograd.grad(logits_real.sum(), real, create_graph=True)
-            per_sample = grad.square().reshape(grad.shape[0], -1).sum(1)
-            r1_penalty = adv.r1_reg_weight * per_sample.mean()
-        ((d_real + r1_penalty) * scale).backward(inputs=d_params)
+            with named_scope("gan.r1_grad"):
+                (grad,) = torch.autograd.grad(logits_real.sum(), real, create_graph=True)
+                per_sample = grad.square().reshape(grad.shape[0], -1).sum(1)
+                r1_penalty = adv.r1_reg_weight * per_sample.mean()
+        with named_scope("gan.d_real_backward"):
+            ((d_real + r1_penalty) * scale).backward(inputs=d_params)
         del logits_real, real
-    recon, q_loss, codes = state.model(images, train=True, temp=temp, kl_cost=kl_cost,
-                                       generator=state.noise_generator)
+    with named_scope("ae.forward"):
+        recon, q_loss, codes = state.model(images, train=True, temp=temp, kl_cost=kl_cost,
+                                           generator=state.noise_generator)
     l1 = l1_loss(recon, images)
     l2 = l2_loss(recon, images)
     perc = g_loss = d_loss = g_weight = zero
     if losses is None:
         loss = q_loss + l2
-        (loss * scale).backward()
+        with named_scope("ae.backward"):
+            (loss * scale).backward()
     else:
         perc = _perc(losses, images, recon, reduce=True)
         nll = l1 * losses.l1_weight + l2 * losses.l2_weight + perc * losses.perc_weight
         if gan:
-            logits_fake = state.disc(_nchw(recon))   # shared by the G and D losses
-            g_loss = generator_loss(logits_fake, adv.loss_type)
-            if adv.use_adaptive:
-                g_weight = _adaptive_g_weight(state.model, perc, g_loss, adv.g_weight)
-                loss = nll + g_loss * g_weight + q_loss
-            else:
-                g_weight = torch.tensor(adv.g_weight, device=images.device)
-                loss = nll + g_loss * adv.g_weight + q_loss
-            d_fake = discriminator_loss_half(logits_fake, False, adv.loss_type).mean()
-            d_loss = d_real + d_fake
-            (d_fake * scale).backward(inputs=d_params, retain_graph=True)
-            (loss * scale).backward(
-                inputs=[p for p in state.model.parameters() if p.requires_grad])
+            with named_scope("gan.d_fake"):
+                logits_fake = state.disc(_nchw(recon))   # shared by the G and D losses
+                g_loss = generator_loss(logits_fake, adv.loss_type)
+                if adv.use_adaptive:
+                    g_weight = _adaptive_g_weight(state.model, perc, g_loss, adv.g_weight)
+                    loss = nll + g_loss * g_weight + q_loss
+                else:
+                    g_weight = torch.tensor(adv.g_weight, device=images.device)
+                    loss = nll + g_loss * adv.g_weight + q_loss
+                d_fake = discriminator_loss_half(logits_fake, False, adv.loss_type).mean()
+                d_loss = d_real + d_fake
+            with named_scope("gan.d_fake_backward"):
+                (d_fake * scale).backward(inputs=d_params, retain_graph=True)
+            with named_scope("ae.backward"):
+                (loss * scale).backward(
+                    inputs=[p for p in state.model.parameters() if p.requires_grad])
         else:
             loss = nll + q_loss
-            (loss * scale).backward()
+            with named_scope("ae.backward"):
+                (loss * scale).backward()
     metrics = {"loss": loss, "l1_loss": l1, "l2_loss": l2, "quant_loss": q_loss,
                "perc_loss": perc, "gen_loss": g_loss, "disc_loss": d_loss,
                "r1_penalty": r1_penalty, "g_weight": g_weight}
@@ -178,25 +194,28 @@ def train_step(state: TrainState, raw_images: torch.Tensor, lr: float, augment: 
     if gan:
         set_lr(state.disc_optimizer, d_lr)
         state.disc_optimizer.zero_grad(set_to_none=True)
-    sums = usage = None
+    sums, codes = None, []
     for micro in raw_images.split(b // accum):
-        metrics, codes = _micro_step(state, micro, augment, image_size, losses, gan, r1,
-                                     temp, kl_cost, 1.0 / accum)
+        metrics, micro_codes = _micro_step(state, micro, augment, image_size, losses, gan, r1,
+                                           temp, kl_cost, 1.0 / accum)
         sums = metrics if sums is None else {k: sums[k] + v for k, v in metrics.items()}
-        micro_usage = count_code_usage(codes, state.usage_count.shape[0])
-        usage = micro_usage if usage is None else usage + micro_usage
-    # one reduction per step, after the micro-batch loop (JAX steps.py:424-438)
-    all_reduce_mean_([p.grad for p in state.model.parameters()])
-    if gan:
-        all_reduce_mean_([p.grad for p in state.disc.parameters()])
-    metrics = sums if accum == 1 else {k: v * (1.0 / accum) for k, v in sums.items()}
-    all_reduce_mean_(metrics.values())
-    all_reduce_sum_([usage])
-    state.usage_count += usage
-    state.optimizer.step()
-    if gan:
-        state.disc_optimizer.step()
-        state.disc_step += 1
+        codes.append(micro_codes)
+    with named_scope("optim"):
+        # one reduction per step, after the micro-batch loop (JAX steps.py:424-438)
+        all_reduce_mean_([p.grad for p in state.model.parameters()])
+        if gan:
+            all_reduce_mean_([p.grad for p in state.disc.parameters()])
+        metrics = sums if accum == 1 else {k: v * (1.0 / accum) for k, v in sums.items()}
+        all_reduce_mean_(metrics.values())
+        state.optimizer.step()
+        if gan:
+            state.disc_optimizer.step()
+            state.disc_step += 1
+    # bincount makes the host wait for the card: counted once the steps are enqueued
+    with named_scope("usage"):
+        usage = count_code_usage(torch.cat(codes), state.usage_count.shape[0])
+        all_reduce_sum_([usage])
+        state.usage_count += usage
     state.step += 1
     metrics["lr"] = lr
     if temp is not None:
