@@ -3,6 +3,7 @@ GAN training step goes, on one CUDA card.
 
     python -m vqvae_tpu_torch.profile_tokenizer [all | tokenizer | ema | gan] [--remat 0|1|auto]
     python -m vqvae_tpu_torch.profile_tokenizer step [mse | lpips | gan | gan_r1] [--remat ...]
+    python -m vqvae_tpu_torch.profile_tokenizer r1 [--remat ...]
 
 Builds ``VQVAE`` from ``example_confs/standard_vqvae.yaml`` and ``Trainer``s
 from ``example_confs/ema_vqvae.yaml`` and ``example_confs/gumbel_vqgan.yaml``
@@ -42,6 +43,14 @@ plain backward (the JAX Trainer's default), through the same
 multiple of ``r1_reg_every``; ``step_window_start`` sets the host step so
 that the first step of the window is one (the JAX tool profiles host steps
 3-6, which hold no R1 step), and the part prints which window step took R1.
+
+The ``r1`` part profiles one R1 step and one plain step of the bf16 GAN
+Trainer on gumbel_vqgan.yaml (plain D backward, after one warm step of
+each kind) with the operators' input shapes, and splits each step's kernel
+time by ``composite``: the autograd node whose backward launched the
+kernel, and, inside autograd's generic convolution double backward, its
+batch-1 per-channel convolutions, its convolutions with an image-sized
+weight operand, and the rest.
 """
 
 from __future__ import annotations
@@ -146,11 +155,11 @@ def report(label: str, window_ms: float, busy: float, per_kernel: dict, card: st
         print(f"  {ms / CALLS:9.2f} ms {count // CALLS:4d}x  {kind_of(name):16s} {name[:110]}")
 
 
-def report_spans(spans: list) -> None:
+def report_spans(spans: list, calls: int = CALLS) -> None:
     """Device ms and count per call of each span path of the window's span
     log (``introspect.span_log()``), in the order they first open; nothing
-    where the log does not hold ``CALLS`` calls."""
-    if sum(s["parent"] is None for s in spans) != CALLS:
+    where the log does not hold ``calls`` calls."""
+    if sum(s["parent"] is None for s in spans) != calls:
         print("  (no span log of this window)")
         return
     paths, totals = {}, {}
@@ -161,19 +170,99 @@ def report_spans(spans: list) -> None:
         total[0] += 1
         total[1] += s["device_ms"]
     for path, (count, ms) in totals.items():
-        print(f"  {ms / CALLS:9.2f} ms {count / CALLS:5.1f}x  span {path}")
+        print(f"  {ms / calls:9.2f} ms {count / calls:5.1f}x  span {path}")
+
+
+CONV_OPS = ("aten::_convolution", "aten::convolution", "aten::cudnn_convolution")
+DOUBLE_BACKWARD = "aten::_convolution_double_backward"
+NODE = "autograd::engine::evaluate_function: "
+
+
+def composite(event) -> str:
+    """The composite whose work a CPU operator event's kernels are: inside
+    ``DOUBLE_BACKWARD``, by its innermost convolution's operands (a batch of
+    1, a weight wider than 4 x 4, or neither); else the innermost autograd
+    node evaluated around it; else ``forward``."""
+    chain = []
+    while event is not None:
+        chain.append(event)
+        event = event.cpu_parent
+    names = [e.name for e in chain]
+    if DOUBLE_BACKWARD in names:
+        conv = next((e for e in chain if e.name in CONV_OPS and len(e.input_shapes) > 1), None)
+        if conv is not None and conv.input_shapes[0][:1] == [1]:
+            return "double backward: batch-1 per-channel convs"
+        if conv is not None and max(conv.input_shapes[1][2:], default=0) > 4:
+            return "double backward: image-sized weight convs"
+        return "double backward: rest"
+    return next((n[len(NODE):] for n in names if n.startswith(NODE)), "forward")
+
+
+def composite_split(prof) -> dict:
+    """{composite: (kernel count, device ms)} of a profile's kernels."""
+    split = defaultdict(lambda: [0, 0.0])
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        for k in e.kernels:
+            total = split[composite(e)]
+            total[0] += 1
+            total[1] += k.duration / 1000
+    return dict(split)
+
+
+def _gan_inputs(device):
+    """gumbel_vqgan.yaml's config, the epoch its GAN starts at, and one
+    seeded batch of ``BATCH`` images."""
+    from vqvae_tpu_torch import load_config
+
+    cfg = load_config(str(GAN_CONFIG))
+    size = cfg.image_size
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    batch = {"image": torch.rand(BATCH, size, size, 3, device=device, generator=gen)}
+    return cfg, cfg.loss.adversarial.start_epoch, batch
+
+
+def profile_r1(device, card: str, remat: Optional[bool] = False) -> None:
+    """One R1 step and one plain step of the bf16 GAN step, by composite."""
+    from vqvae_tpu_torch.train.loop import Trainer
+
+    cfg, epoch, batch = _gan_inputs(device)
+    trainer = Trainer(cfg, learning_rate=cfg.training.scaled_lr(), seed=SEED,
+                      steps_per_epoch=1000, compute_dtype=torch.bfloat16, device=device,
+                      remat=remat)
+    state = trainer.init_state()
+
+    def step(r1: bool):
+        trainer.host_step = 0 if r1 else 1
+        trainer.train_step(state, batch, epoch=epoch)
+
+    for r1 in (True, False):
+        step(r1)
+    torch.cuda.synchronize()
+    for r1 in (True, False):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            start.record()
+            step(r1)
+            end.record()
+            torch.cuda.synchronize()
+        split = composite_split(prof)
+        print(f"== train_step gan {'R1' if r1 else 'non-R1'} plain D backward bfloat16 batch "
+              f"{BATCH} [{card}]: window {start.elapsed_time(end):.2f} ms, kernels "
+              f"{sum(ms for _, ms in split.values()):.2f} ms; by composite:")
+        for name, (count, ms) in sorted(split.items(), key=lambda kv: -kv[1][1]):
+            print(f"  {ms:9.2f} ms {count:6d}x  {name}")
+        report_spans(span_log(), calls=1)
 
 
 def profile_gan(device, card: str, remat: Optional[bool] = False) -> None:
     """The GAN step on gumbel_vqgan.yaml: kernels, then device time by span."""
-    from vqvae_tpu_torch import load_config
     from vqvae_tpu_torch.train.loop import Trainer
 
-    cfg = load_config(str(GAN_CONFIG))
-    epoch = cfg.loss.adversarial.start_epoch
-    size = cfg.image_size
-    gen = torch.Generator(device=device).manual_seed(SEED + 2)
-    batch = {"image": torch.rand(BATCH, size, size, 3, device=device, generator=gen)}
+    cfg, epoch, batch = _gan_inputs(device)
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).removeprefix("torch.")
         trainer = Trainer(cfg, learning_rate=cfg.training.scaled_lr(), seed=SEED,
@@ -238,7 +327,7 @@ def profile_step(variant: str, device, card: str, remat: Optional[bool] = False)
 def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("part", nargs="?", default="all",
-                    choices=["all", "tokenizer", "ema", "gan", "step"])
+                    choices=["all", "tokenizer", "ema", "gan", "step", "r1"])
     ap.add_argument("variant", nargs="?", default="gan_r1",
                     help="the step part's bench_breakdown variant: mse | lpips | gan | gan_r1")
     ap.add_argument("--remat", default="0", choices=["0", "1", "auto"],
@@ -269,6 +358,8 @@ def main(argv=None):
             sys.exit(f"profile_tokenizer: unknown variant {args.variant!r}: "
                      f"{' | '.join(VARIANTS)}")
         return profile_step(args.variant, device, card, remat)
+    if what == "r1":
+        return profile_r1(device, card, remat)
     if what in ("all", "gan"):
         profile_gan(device, card, remat)
     if what == "gan":

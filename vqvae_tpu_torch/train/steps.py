@@ -19,7 +19,11 @@
   on an R1 step the real images go through the plain D (``fused=False``),
   and the penalty is ``r1_weight`` times the batch mean of
   ``|d sum(D(x)) / dx|^2`` taken with ``create_graph``, so its D gradient is
-  a second-order one. Both optimizers step once, after every backward pass
+  a second-order one. The backward passes through D that want no D
+  gradient (toward the real images for R1, toward the decoder's last conv
+  for the adaptive lambda, toward the autoencoder) run under
+  ``ops.conv2d_resample.no_weight_gradients``, so D's convolutions form no
+  weight gradient there. Both optimizers step once, after every backward pass
   of the step, so D sees pre-update reconstructions. With ``use_adaptive`` the generator
   loss's weight is the adaptive lambda (``_adaptive_g_weight``).
 - Accumulation (``grad_accum_steps > 1``): the batch is taken in equal
@@ -65,6 +69,7 @@ from vqvae_tpu_torch.losses.losses import (discriminator_loss_half,
                                            generator_loss_per_sample, l1_loss, l2_loss)
 from vqvae_tpu_torch.models.preprocess import denormalize, preprocess_batch
 from vqvae_tpu_torch.models.quantizers import count_code_usage
+from vqvae_tpu_torch.ops.conv2d_resample import no_weight_gradients
 from vqvae_tpu_torch.parallel.dist import all_reduce_mean_, all_reduce_sum_
 from vqvae_tpu_torch.train.optim import set_lr
 from vqvae_tpu_torch.train.state import TrainState
@@ -130,7 +135,7 @@ def _micro_step(state: TrainState, raw_images: torch.Tensor, augment: bool, imag
             logits_real = state.disc(real, fused=not r1)
             d_real = discriminator_loss_half(logits_real, True, adv.loss_type).mean()
         if r1:
-            with named_scope("gan.r1_grad"):
+            with named_scope("gan.r1_grad"), no_weight_gradients():
                 (grad,) = torch.autograd.grad(logits_real.sum(), real, create_graph=True)
                 per_sample = grad.square().reshape(grad.shape[0], -1).sum(1)
                 r1_penalty = adv.r1_reg_weight * per_sample.mean()
@@ -155,7 +160,8 @@ def _micro_step(state: TrainState, raw_images: torch.Tensor, augment: bool, imag
                 logits_fake = state.disc(_nchw(recon))   # shared by the G and D losses
                 g_loss = generator_loss(logits_fake, adv.loss_type)
                 if adv.use_adaptive:
-                    g_weight = _adaptive_g_weight(state.model, perc, g_loss, adv.g_weight)
+                    with no_weight_gradients():
+                        g_weight = _adaptive_g_weight(state.model, perc, g_loss, adv.g_weight)
                     loss = nll + g_loss * g_weight + q_loss
                 else:
                     g_weight = torch.tensor(adv.g_weight, device=images.device)
@@ -164,7 +170,7 @@ def _micro_step(state: TrainState, raw_images: torch.Tensor, augment: bool, imag
                 d_loss = d_real + d_fake
             with named_scope("gan.d_fake_backward"):
                 (d_fake * scale).backward(inputs=d_params, retain_graph=True)
-            with named_scope("ae.backward"):
+            with named_scope("ae.backward"), no_weight_gradients():
                 (loss * scale).backward(
                     inputs=[p for p in state.model.parameters() if p.requires_grad])
         else:
