@@ -23,54 +23,31 @@ from pathlib import Path
 
 import torch
 
-from benchmark import compare
 from benchmark.run import HERE, load_cell
 from benchmark.runtime import Context
 
 LOWER = {"bf16": "fp8", "fp32": "tf32"}
-# a window long enough to serve as many requests as a run compares
-SERVING_SECONDS = {"tokenize": 4.0, "detokenize": 1.0}
 
 
 def readings(ctx, whats) -> dict:
-    """{what: numbers} on one seed; the fp32 reference is computed once.
-    ``program``: the port's own readings, as a run takes them (training:
-    the first steps, with no window; serving: a short window)."""
-    kind, t = ctx.traffic["kind"], ctx.traffic
-    lower = LOWER[t["precision"]]
+    """{what: numbers} on one seed, each read by the cell's driver
+    (``cells/<kind>.py``). ``program``: the port's own readings, as a run
+    takes them, in the driver's ``CHECK_WINDOW_S`` (None: no window, the
+    first steps of set-up); ``control``: the reference one precision down
+    in the port's place; any other: that fault of the driver's on the
+    reference."""
+    t = ctx.traffic
+    driver = importlib.import_module(f"benchmark.cells.{t['kind']}")
     out = {}
-    if "program" in whats:
-        whats = [w for w in whats if w != "program"]
-        driver = importlib.import_module(f"benchmark.cells.{kind}")
-        ctx.measure = kind != "train"
-        ctx.seconds = SERVING_SECONDS.get(kind, 0.0)
-        out["program"] = driver.run(ctx).numbers
-        if not whats:
-            return out
-    if kind == "train":
-        from benchmark.cells.train import reference_readings
-        want = reference_readings(ctx)
-        for what in whats:
-            got = reference_readings(ctx, mode=lower if what == "control" else "fp32",
-                                     half_batch=what == "half_batch")
-            out[what] = compare.train_numbers(got, want)
-        return out
-    if list(whats) != ["control"]:
-        raise ValueError("only training cells have faults to read here")
-    requests = list(range(t["check_requests"]))
-    if kind == "tokenize":
-        from benchmark.cells.tokenize import numbers_for, reference_codes
-        from benchmark.reference import nets, numerics
-        latents, codebook = reference_codes(ctx, requests)
-        low, _ = reference_codes(ctx, requests, mode=lower)
-        with numerics.mode(lower):
-            codes = [nets.scores(z, codebook).argmin(1) for z in low]
-        out["control"] = numbers_for(latents, codebook, codes)
-        return out
-    from benchmark.cells.detokenize import numbers_for, reference_images
-    refs = reference_images(ctx, requests)
-    low = [(x * 255.0).round().to(torch.uint8) for x in reference_images(ctx, requests, lower)]
-    out["control"] = numbers_for(low, refs)
+    for what in whats:
+        if what == "program":
+            ctx.measure = driver.CHECK_WINDOW_S is not None
+            ctx.seconds = driver.CHECK_WINDOW_S or 0.0
+            out[what] = driver.run(ctx).numbers
+        elif what == "control":
+            out[what] = driver.reference_numbers(ctx, LOWER[t["precision"]])
+        else:
+            out[what] = driver.reference_numbers(ctx, "fp32", fault=what)
     return out
 
 

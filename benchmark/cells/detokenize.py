@@ -19,12 +19,17 @@ import time
 
 import torch
 
-from benchmark import compare, flops, inputs
+from benchmark import compare, flops, inputs, reference
 from benchmark.runtime import Outcome, Stamp, free, host_pool, load_weights, peak_bytes, sync, \
     weight_specs
 from benchmark.trace import Trace, profiled, reduce
 
 DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
+# the port's span around one call of the timed path: a traced window's top level
+TOP_SPAN = "api.reconstruct_from_tokens"
+# calibrate's window for the port's readings: long enough to serve as many
+# requests as a run compares
+CHECK_WINDOW_S = 1.0
 
 
 def reference_images(ctx, requests: list, mode: str = "fp32") -> list:
@@ -38,7 +43,7 @@ def reference_images(ctx, requests: list, mode: str = "fp32") -> list:
 
 def _tokens(ctx, index: int):
     q, t = ctx.cfg["quantizer"], ctx.traffic
-    side = ctx.cfg["image_size"] // 2 ** len(ctx.cfg["autoencoder"]["channel_multipliers"])
+    side = reference.of(ctx.cfg).latent_side(ctx.cfg)
     return inputs.tokens(ctx.seed, index, t["batch"], side * side, q["num_embeddings"],
                          ctx.device)
 
@@ -47,6 +52,18 @@ def numbers_for(images: list, refs: list) -> dict:
     parts = [compare.pixel_gap(p.to(r.device), r) for p, r in zip(images, refs)]
     return {"pixel_gap": max(p["pixel_gap"] for p in parts),
             "pixel_gap_mean": sum(p["pixel_gap_mean"] for p in parts) / len(parts)}
+
+
+def reference_numbers(ctx, mode: str, fault: str = None) -> dict:
+    """The compared numbers with the plain reference in ``mode`` put in the
+    port's place (its images rounded to uint8 as the port's are), against
+    the reference in fp32, over as many requests as a run compares."""
+    if fault is not None:
+        raise ValueError(f"no fault {fault!r} to read on the reference of decoding")
+    requests = list(range(ctx.traffic["check_requests"]))
+    refs = reference_images(ctx, requests)
+    low = [(x * 255.0).round().to(torch.uint8) for x in reference_images(ctx, requests, mode)]
+    return numbers_for(low, refs)
 
 
 def p95(values) -> float:

@@ -18,10 +18,16 @@ import time
 
 import torch
 
-from benchmark import compare, flops, inputs
+from benchmark import compare, flops, inputs, reference
 from benchmark.runtime import (Outcome, free, host_pool, load_weights, peak_bytes, sample,
                                sync, weight_specs)
 from benchmark.trace import Trace, profiled, reduce
+
+# the port's span around one call of the timed path: a traced window's top level
+TOP_SPAN = "api.get_tokens"
+# calibrate's window for the port's readings: long enough to serve as many
+# requests as a run compares
+CHECK_WINDOW_S = 4.0
 
 
 def build(ctx):
@@ -64,6 +70,21 @@ def numbers_for(latents: list, codebook, codes: list) -> dict:
             "codes_differing": sum(p["codes_differing"] for p in parts) / len(parts)}
 
 
+def reference_numbers(ctx, mode: str, fault: str = None) -> dict:
+    """The compared numbers with the plain reference in ``mode`` put in the
+    port's place (its latents and nearest codes in ``mode``), against the
+    reference in fp32, over as many requests as a run compares."""
+    from benchmark.reference import nets, numerics
+    if fault is not None:
+        raise ValueError(f"no fault {fault!r} to read on the reference of token export")
+    requests = list(range(ctx.traffic["check_requests"]))
+    latents, codebook = reference_codes(ctx, requests)
+    low, _ = reference_codes(ctx, requests, mode=mode)
+    with numerics.mode(mode):
+        codes = [nets.scores(z, codebook).argmin(1) for z in low]
+    return numbers_for(latents, codebook, codes)
+
+
 def run(ctx) -> Outcome:
     from vqvae_tpu_torch.ops import vq
 
@@ -104,7 +125,7 @@ def run(ctx) -> Outcome:
     if ctx.trace:
         tr = Trace(kind="tokenize", window_s=window_s, images=n * t["batch"])
         tr.counters = {"b1": vq.nearest_codes.launches - launches0}
-        latent = cfg.latent_size
+        latent = reference.of(ctx.cfg).latent_side(ctx.cfg)
         tr.shapes = {"b1": (t["batch"] * latent * latent, cfg.quantizer.num_embeddings,
                             cfg.quantizer.embedding_dim)}
         out.breakdown = reduce(prof, tr) if prof is not None else None

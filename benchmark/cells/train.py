@@ -26,12 +26,18 @@ import time
 
 import torch
 
-from benchmark import compare, flops, inputs
+from benchmark import compare, flops, inputs, reference
 from benchmark.runtime import (Outcome, Stamp, free, host_pool, load_weights, peak_bytes,
                                sync, weight_specs)
 from benchmark.trace import Trace, profiled, reduce
 
 DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
+# the port's span around one call of the timed path: a traced window's top level
+TOP_SPAN = "train.step"
+# calibrate's window for the port's readings: none, the first steps of set-up
+# are what a run compares
+CHECK_WINDOW_S = None
+FAULTS = ("half_batch",)
 
 
 def schedule(ctx):
@@ -102,6 +108,17 @@ def reference_readings(ctx, mode: str = "fp32", half_batch: bool = False) -> dic
     del run, weights
     free(ctx.device)
     return readings
+
+
+def reference_numbers(ctx, mode: str, fault: str = None) -> dict:
+    """The compared numbers with the plain reference in ``mode`` (with
+    ``fault``, one of ``FAULTS``, if given) put in the port's place, against
+    the reference in fp32."""
+    if fault not in (None, *FAULTS):
+        raise ValueError(f"no fault {fault!r} to read on a training cell; {FAULTS}")
+    want = reference_readings(ctx)
+    return compare.train_numbers(reference_readings(ctx, mode, half_batch=fault == "half_batch"),
+                                 want)
 
 
 def run(ctx) -> Outcome:
@@ -192,7 +209,7 @@ def run(ctx) -> Outcome:
         tr = Trace(kind="train", window_s=window_s, images=n_steps * batch)
         tr.step_ms = [(label, a.ms_until(b)) for label, a, b in stamps]
         tr.counters = {"b2": vq.nearest_codes_stats.launches - launches0}
-        latent = size // 2 ** len(cfg.autoencoder.channel_multipliers)
+        latent = reference.of(ctx.cfg).latent_side(ctx.cfg)
         tr.shapes = {"b2": (batch * latent * latent, cfg.quantizer.num_embeddings,
                             cfg.quantizer.embedding_dim)}
         out.breakdown = reduce(prof, tr) if prof is not None else None

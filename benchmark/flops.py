@@ -2,7 +2,7 @@
 model needs per image, and the least time of a VQ kernel call.
 
 Model FLOPs are counted once, from the configuration's shapes, by running
-the plain reference on the meta device under
+the configuration's plain reference (``reference.of``) on the meta device under
 a dispatch mode that applies ``torch.utils.flop_counter``'s formulas (its
 ``FlopCounterMode`` hooks modules, which the R1 penalty's
 ``autograd.grad`` refuses): every convolution and matrix
@@ -70,9 +70,9 @@ def train_flops_per_image(cfg: dict, batch: int) -> float:
 
 def tokenize_flops_per_image(cfg: dict) -> float:
     """The encoder's forward and the nearest-code distances of one image."""
-    from benchmark.reference import nets
+    from benchmark import reference
     with torch.device("meta"):
-        model = nets.VQVAE(cfg)
+        model = reference.of(cfg).VQVAE(cfg)
     size = cfg["image_size"]
     x = torch.zeros(1, 3, size, size, device="meta")
     return float(_count(lambda: model.quantizer.codes(model.encoder(x))))
@@ -80,10 +80,11 @@ def tokenize_flops_per_image(cfg: dict) -> float:
 
 def detokenize_flops_per_image(cfg: dict) -> float:
     """The decoder's forward of one image's tokens."""
-    from benchmark.reference import nets
+    from benchmark import reference
+    arch = reference.of(cfg)
     with torch.device("meta"):
-        model = nets.VQVAE(cfg)
-    side = cfg["image_size"] // 2 ** len(cfg["autoencoder"]["channel_multipliers"])
+        model = arch.VQVAE(cfg)
+    side = arch.latent_side(cfg)
     tokens = torch.zeros(1, side * side, dtype=torch.long, device="meta")
     return float(_count(lambda: model.decode_tokens(tokens)))
 

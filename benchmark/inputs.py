@@ -46,7 +46,8 @@ def _rule(name: str, shape, cfg: dict):
         if rest == "quantizer.codebook.weight":
             return "n", cfg["assumed"]["codebook_std"], 0.0
         if rest == "quantizer.ema_count":
-            latent = cfg["image_size"] // 2 ** len(cfg["autoencoder"]["channel_multipliers"])
+            from benchmark import reference
+            latent = reference.of(cfg).latent_side(cfg)
             mean = cfg["assumed"]["batch_images"] * latent * latent / q["num_embeddings"]
             return "u", 0.5 * mean, mean
         if rest == "quantizer.ema_weight":

@@ -10,6 +10,10 @@ reference therefore makes too: GroupNorm's variance is the unbiased one
 (``/(n-1)``) with eps 1e-6; the EMA update normalizes the Laplace smoothing
 by the image count; the augmentation's crop-resize samples the whole image
 with tent weights (``jax.image.scale_and_translate``'s linear method).
+
+It is the reference of every configuration that names none, and gives the
+interface of ``reference/__init__.py``; the augmentation and the schedules
+serve the training reference of every architecture.
 """
 
 from __future__ import annotations
@@ -233,6 +237,18 @@ class VQVAE(nn.Module):
         q = self.quantizer.codebook.weight[tokens.reshape(-1).long()]
         q = q.reshape(b, hw, hw, -1).permute(0, 3, 1, 2)
         return (self.decoder(q) * 0.5 + 0.5).clamp(0, 1).permute(0, 2, 3, 1)
+
+
+def latent_side(cfg: dict) -> int:
+    """Every level of the encoder halves the image."""
+    return cfg["image_size"] // 2 ** len(cfg["autoencoder"]["channel_multipliers"])
+
+
+def tiny(cfg: dict) -> dict:
+    """16^2 images, 32 channels, multipliers [1, 2], 16 codes of 8 dims."""
+    return dict(cfg, image_size=16,
+                autoencoder={"channels": 32, "num_res_blocks": 1, "channel_multipliers": [1, 2]},
+                quantizer=dict(cfg["quantizer"], num_embeddings=16, embedding_dim=8))
 
 
 def decay_names(model: nn.Module, prefix: str = "") -> set:

@@ -18,6 +18,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from benchmark import reference
 from benchmark.reference import nets
 from benchmark.reference.disc import LPIPS, Discriminator
 
@@ -27,9 +28,10 @@ def _split(weights: dict, prefix: str) -> dict:
 
 
 def build(cfg: dict, weights: dict, device) -> dict:
-    """The reference's modules with the benchmark's weights:
-    {"model": VQVAE, and with a GAN "disc" and "lpips"}."""
-    parts = {"model": nets.VQVAE(cfg)}
+    """The reference's modules with the benchmark's weights: {"model": the
+    configuration's reference ``VQVAE``, and with a GAN "disc" and
+    "lpips"}."""
+    parts = {"model": reference.of(cfg).VQVAE(cfg)}
     adv = (cfg.get("loss") or {}).get("adversarial_params")
     if adv is not None:
         parts["disc"] = Discriminator(cfg["image_size"], **cfg.get("discriminator", {}))
@@ -45,7 +47,7 @@ def spec_modules(cfg: dict) -> dict:
     """The reference's modules on the meta device: names and shapes of every
     leaf the benchmark makes weights for."""
     with torch.device("meta"):
-        parts = {"model": nets.VQVAE(cfg)}
+        parts = {"model": reference.of(cfg).VQVAE(cfg)}
         if (cfg.get("loss") or {}).get("adversarial_params") is not None:
             parts["disc"] = Discriminator(cfg["image_size"], **cfg.get("discriminator", {}))
             parts["lpips"] = LPIPS()
@@ -90,6 +92,10 @@ class Run:
 
     def __init__(self, cfg: dict, weights: dict, seed: int, step: int, disc_step: int,
                  spe: int, epoch: int, r1, device, half_batch: bool = False):
+        arch = reference.of(cfg)
+        if not hasattr(arch, "decay_names"):
+            raise ValueError(f"{arch.__name__} has no training reference (no decay_names): "
+                             "a training cell needs one")
         self.cfg, self.device = cfg, device
         # on the meta device (``weights`` None) the run only traces its
         # operations, for the FLOP count: nothing is read back
@@ -114,7 +120,7 @@ class Run:
         betas, eps, wd = tuple(t["betas"]), t["eps"], t["weight_decay"]
         model = self.parts["model"]
         self.leaves = {f"model.{k}": p for k, p in model.named_parameters()}
-        self.opt = AdamW(dict(self.leaves), nets.decay_names(model, "model."), betas, eps, wd)
+        self.opt = AdamW(dict(self.leaves), arch.decay_names(model, "model."), betas, eps, wd)
         if self.gan:
             disc = self.parts["disc"]
             d_leaves = {f"disc.{k}": p for k, p in disc.named_parameters()}

@@ -3,11 +3,14 @@
     python3 -m benchmark.run --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 run from the root of a checkout. Everything is found by name from
-``BENCHMARK.json``: the cell's configuration in ``configs/<config>.json``,
-its traffic in ``traffic/<traffic>.json`` (whose ``kind`` names the driver
-in ``cells/<kind>.py``), its limits in ``workloads/<cell>.json``, and each
-per-layer metric's reader in ``metrics/<metric>.py``. A new cell, traffic
-mix, configuration or metric is a new file.
+``BENCHMARK.json``: the cell's configuration in ``configs/<config>.json``
+(whose ``reference`` names the plain reference of its architecture in
+``reference/<reference>.py``, ``nets`` where it names none; the interface
+is in ``reference/__init__.py``), its traffic in ``traffic/<traffic>.json``
+(whose ``kind`` names the driver in ``cells/<kind>.py``), its limits in
+``workloads/<cell>.json``, and each per-layer metric's reader in
+``metrics/<metric>.py``. A new cell, traffic mix, configuration,
+architecture's reference or metric is a new file and new entries.
 
 A run makes its weights and inputs from ``--seed``, warms up (counted in
 ``setup_s``), measures for ``--seconds``, then checks what the timed path

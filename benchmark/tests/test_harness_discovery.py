@@ -13,7 +13,7 @@ from pathlib import Path
 import pytest
 import yaml
 
-from benchmark import run
+from benchmark import reference, run
 
 HERE = Path(__file__).resolve().parent.parent
 ROOT = HERE.parent
@@ -44,28 +44,63 @@ def test_config_file_is_the_published_yaml(cfg):
     assert any(w["config"] == cfg["name"] for w in BENCH["workloads"])
 
 
-@pytest.mark.parametrize("cell", BENCH["workloads"], ids=lambda w: w["name"])
-def test_cell_finds_its_files(cell):
+def check_cell_finds_its_files(root: Path, here: Path, name: str) -> None:
+    """Cell ``name`` of ``root``'s BENCHMARK.json finds its configuration,
+    its configuration's plain reference, its traffic's driver and its
+    limits, and reports ``setup_s``, another end-to-end metric and a
+    per-layer metric that moves one of them."""
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    cell = {w["name"]: w for w in bench["workloads"]}[name]
     assert set(cell) == {"name", "config", "traffic", "chips", "why"}
     assert cell["chips"] == 1 and 1 <= len(cell["why"]) <= 200
-    _, _, config, traffic, limits = run.load_cell(ROOT, HERE, cell["name"])
+    _, _, config, traffic, limits = run.load_cell(root, here, name)
     assert config["name"] == cell["config"]
+    arch = reference.of(config)
+    assert arch.VQVAE and arch.latent_side(config) > 0 and arch.tiny(config)
     assert importlib.import_module(f"benchmark.cells.{traffic['kind']}").run
-    assert limits, f"workloads/{cell['name']}.json holds no limits"
-    reports = [m["name"] for m in BENCH["end_to_end"] if run._applies(m, cell["name"])]
+    assert limits, f"workloads/{name}.json holds no limits"
+    reports = [m["name"] for m in bench["end_to_end"] if run._applies(m, name)]
     assert "setup_s" in reports and len(reports) >= 2
-    per_layer = [m for m in BENCH["per_layer"] if run._applies(m, cell["name"])]
+    per_layer = [m for m in bench["per_layer"] if run._applies(m, name)]
     assert per_layer and all(m["moves"] in reports for m in per_layer)
 
 
-def test_pairs_and_names_are_unique():
-    pairs = [(w["config"], w["traffic"]) for w in BENCH["workloads"]]
+def check_names(bench: dict) -> None:
+    """Pairs of configuration and traffic, and names, are unique and
+    well formed."""
+    pairs = [(w["config"], w["traffic"]) for w in bench["workloads"]]
     assert len(set(pairs)) == len(pairs)
     for group in ("configs", "workloads"):
-        names = [x["name"] for x in BENCH[group]]
+        names = [x["name"] for x in bench[group]]
         assert len(set(names)) == len(names) and all(NAME.match(n) for n in names)
-    metrics = [m["name"] for m in BENCH["end_to_end"] + BENCH["per_layer"]]
+    metrics = [m["name"] for m in bench["end_to_end"] + bench["per_layer"]]
     assert len(set(metrics)) == len(metrics) and all(NAME.match(n) for n in metrics)
+
+
+def check_per_layer_metric(here: Path, bench: dict, metric: dict) -> None:
+    """A per-layer metric is well formed, moves an end-to-end metric, lists
+    cells that exist, and has a reader that finds nothing in an empty
+    trace of any traffic kind (``cells/<kind>.py``)."""
+    from benchmark.trace import Trace
+    assert UNIT.match(metric["unit"]) and metric["better"] in ("lower", "higher")
+    assert metric["source"] in ("host_clock", "device_trace", "program_span",
+                                "program_counter")
+    assert metric["moves"] in {m["name"] for m in bench["end_to_end"]}
+    assert (here / "metrics" / f"{metric['name']}.py").exists()
+    cells = {w["name"] for w in bench["workloads"]}
+    assert set(metric["workloads"]) <= cells
+    for driver in sorted((HERE / "cells").glob("[!_]*.py")):
+        empty = Trace(kind=driver.stem, window_s=1.0)
+        assert run.read_metric(here, metric["name"], empty) is None, (metric["name"], driver)
+
+
+@pytest.mark.parametrize("cell", BENCH["workloads"], ids=lambda w: w["name"])
+def test_cell_finds_its_files(cell):
+    check_cell_finds_its_files(ROOT, HERE, cell["name"])
+
+
+def test_pairs_and_names_are_unique():
+    check_names(BENCH)
 
 
 @pytest.mark.parametrize("metric", BENCH["end_to_end"], ids=lambda m: m["name"])
@@ -77,14 +112,7 @@ def test_end_to_end_metric(metric):
 
 @pytest.mark.parametrize("metric", BENCH["per_layer"], ids=lambda m: m["name"])
 def test_per_layer_metric_has_a_reader(metric):
-    assert UNIT.match(metric["unit"]) and metric["better"] in ("lower", "higher")
-    assert metric["source"] in ("host_clock", "device_trace", "program_span",
-                                "program_counter")
-    assert metric["moves"] in {m["name"] for m in BENCH["end_to_end"]}
-    path = HERE / "metrics" / f"{metric['name']}.py"
-    assert path.exists()
-    cells = {w["name"] for w in BENCH["workloads"]}
-    assert set(metric["workloads"]) <= cells
+    check_per_layer_metric(HERE, BENCH, metric)
 
 
 def test_a_reader_that_finds_nothing_returns_nothing():

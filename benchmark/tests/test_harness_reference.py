@@ -3,9 +3,12 @@ configuration on the CPU, in float32, layer by layer: encoder, decoder,
 the gumbel and EMA quantizers (B2's counts, sums and buffer update), B1's
 codes, LPIPS-VGG, the discriminator (``bias_act``, ``upfirdn2d``,
 ``conv2d_resample``), the R1 term and AdamW; then whole training steps
-through the harness. Both sides get the benchmark's weights."""
+through the harness. Both sides get the benchmark's weights; each
+configuration's reference is the one it names (``reference.of``)."""
 
 from __future__ import annotations
+
+import json
 
 import pytest
 import torch
@@ -13,10 +16,13 @@ import torch
 from benchmark import inputs
 from benchmark.reference import nets
 from benchmark.reference.train import AdamW, build
+from benchmark.run import HERE
 from benchmark.runtime import load_weights, weight_specs
 from benchmark.tests.tiny import tiny_config
 
 SEED = 2 ** 31 + 17
+CONFIGS = [c["name"] for c in
+           json.loads((HERE.parent / "BENCHMARK.json").read_text())["configs"]]
 
 
 def sides(name: str):
@@ -46,16 +52,16 @@ def close(a, b, rtol=1e-5):
     torch.testing.assert_close(a.float(), b.float(), rtol=rtol, atol=rtol * b.abs().max())
 
 
-@pytest.mark.parametrize("name", ["gumbel_vqgan", "ema_vqvae"])
+@pytest.mark.parametrize("name", CONFIGS)
 @pytest.mark.parametrize("part", ["encoder", "decoder"])
 def test_autoencoder_halves(name, part):
+    """Each configuration of BENCHMARK.json, through its own reference."""
     cfg, _, port, ref = sides(name)
     x = images(cfg).permute(0, 3, 1, 2)
     if part == "decoder":
         with torch.no_grad():
-            x = port["model"].encoder(x)
-            if name == "gumbel_vqgan":   # the decoder takes D channels
-                x = x[:, : cfg["quantizer"]["embedding_dim"]]
+            # the decoder takes D channels (a gumbel encoder gives N logits)
+            x = port["model"].encoder(x)[:, : cfg["quantizer"]["embedding_dim"]]
     with torch.no_grad():
         close(getattr(port["model"], part)(x), getattr(ref["model"], part)(x))
 

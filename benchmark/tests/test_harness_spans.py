@@ -1,14 +1,17 @@
 """The per-layer metrics read from the port's spans (``source:
 "program_span"``): a tiny traced run of each cell on the CPU prints every
 one that applies to it, non-null, with ``correct`` true, and the spans
-nest as the metrics assume. On the card only, the GAN cell's spans agree
-with the outside timers:
+nest as the metrics assume: the window's top-level spans are the one its
+traffic's kind names (the driver's ``TOP_SPAN``), and each ordering of
+spans is checked wherever the metrics it concerns are reported. On the
+card only, the GAN cell's spans agree with the outside timers:
 
     python3 -m pytest benchmark/tests/test_harness_spans.py -m cuda
 """
 
 from __future__ import annotations
 
+import importlib
 import json
 from pathlib import Path
 
@@ -21,9 +24,13 @@ from benchmark.tests import tiny
 
 ROOT = HERE.parent
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
-SPAN_METRICS = [m for m in BENCH["per_layer"] if m["source"] == "program_span"]
 CELLS = [w["name"] for w in BENCH["workloads"]]
 TRAIN = "gumbel_vqgan.train_gan"
+
+
+def span_metrics(root: Path) -> list:
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    return [m for m in bench["per_layer"] if m["source"] == "program_span"]
 
 
 def traced(cell: str, seed: int, seconds: float, root: Path, here: Path, capsys,
@@ -42,37 +49,47 @@ def device_ms(spans: list, name: str, top: str = None) -> list:
             for t in tops]
 
 
-def test_every_cell_with_a_span_metric_names_its_readers():
-    assert SPAN_METRICS
-    for m in SPAN_METRICS:
+def check_span_readers(root: Path, here: Path) -> None:
+    """Every span metric names exactly one cell and has its reader."""
+    metrics = span_metrics(root)
+    assert metrics
+    for m in metrics:
         assert m["unit"] == "ms" and m["better"] == "lower" and len(m["workloads"]) == 1
-        assert (HERE / "metrics" / f"{m['name']}.py").exists()
+        assert (here / "metrics" / f"{m['name']}.py").exists()
 
 
-@pytest.mark.parametrize("cell", CELLS)
-def test_a_traced_run_prints_the_span_metrics(tmp_path, capsys, cell):
+def check_traced_run(root: Path, here: Path, cell: str, capsys) -> None:
+    """A tiny traced run of ``cell`` prints its span metrics, and the spans
+    nest as they assume."""
     from vqvae_tpu_torch.utils.introspect import span_log
-    root, here = tiny.make(tmp_path, fp32=True)
     out = traced(cell, 2 ** 31 + 9, 0.5, root, here, capsys, allow_cpu=True)
     assert out["correct"] is True, out["checks"]
-    want = [m["name"] for m in SPAN_METRICS if cell in m["workloads"]]
+    want = [m["name"] for m in span_metrics(root) if cell in m["workloads"]]
     assert want
     for name in want:
         assert out["metrics"][name]["value"] is not None, name
         assert out["metrics"][name]["value"] > 0, name
+    kind = run.load_cell(root, here, cell)[3]["kind"]
+    top = importlib.import_module(f"benchmark.cells.{kind}").TOP_SPAN
     spans = span_log()
-    tops = {s["name"] for s in spans if s["parent"] is None}
-    if cell == TRAIN:
-        assert tops == {"train.step"}
-    elif cell == "ema_vqvae.tokenize":
-        assert tops == {"api.get_tokens"}
-        api = device_ms(spans, "api.get_tokens")
-        assert all(e <= a for e, a in zip(device_ms(spans, "encoder"), api))
-    else:
-        assert tops == {"api.reconstruct_from_tokens"}
-        metrics = {k: v["value"] for k, v in out["metrics"].items()}
-        api = device_ms(spans, "api.reconstruct_from_tokens")
-        assert metrics["norm_act_ms"] <= metrics["decoder_ms"] <= sum(api) / len(api)
+    assert {s["name"] for s in spans if s["parent"] is None} == {top}
+    metrics = {k: v["value"] for k, v in out["metrics"].items()}
+    calls = device_ms(spans, top)
+    if "encoder_ms" in metrics:
+        assert all(e <= a for e, a in zip(device_ms(spans, "encoder"), calls))
+    if "decoder_ms" in metrics:
+        assert metrics["decoder_ms"] <= sum(calls) / len(calls)
+        if "norm_act_ms" in metrics:
+            assert metrics["norm_act_ms"] <= metrics["decoder_ms"]
+
+
+def test_every_cell_with_a_span_metric_names_its_readers():
+    check_span_readers(ROOT, HERE)
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_a_traced_run_prints_the_span_metrics(tmp_path, capsys, cell):
+    check_traced_run(*tiny.make(tmp_path, fp32=True), cell, capsys)
 
 
 @pytest.mark.cuda

@@ -1,8 +1,9 @@
-"""A tiny copy of the benchmark for CPU tests: every configuration cut to
-16^2 images, 32 channels, multipliers [1, 2], 16 codes of 8 dims and a
-discriminator with channel_base 256, every traffic mix to batches of 4 and
-windows of a few steps. ``make(tmp_path)`` writes it and returns
-(root, here) for ``benchmark.run.main``."""
+"""A tiny copy of the benchmark for CPU tests: every configuration's model
+cut by its plain reference's ``tiny`` (``nets``: 16^2 images, 32 channels,
+multipliers [1, 2], 16 codes of 8 dims), its discriminator to channel_base
+256, every traffic mix to batches of 4 and windows of a few steps.
+``make(tmp_path)`` writes it and returns (root, here) for
+``benchmark.run.main``."""
 
 from __future__ import annotations
 
@@ -10,15 +11,17 @@ import json
 import shutil
 from pathlib import Path
 
+from benchmark import reference
+
 HERE = Path(__file__).resolve().parent.parent
 ROOT = HERE.parent
 
 
 def tiny_config(name: str) -> dict:
+    """Configuration ``name`` with its model cut by its reference's ``tiny``,
+    and its discriminator, assumed batch and steps per epoch cut here."""
     cfg = json.loads((HERE / "configs" / f"{name}.json").read_text())
-    cfg["image_size"] = 16
-    cfg["autoencoder"] = {"channels": 32, "num_res_blocks": 1, "channel_multipliers": [1, 2]}
-    cfg["quantizer"] = dict(cfg["quantizer"], num_embeddings=16, embedding_dim=8)
+    cfg = reference.of(cfg).tiny(cfg)
     if cfg.get("loss"):
         cfg["discriminator"] = {"channel_base": 256}
     cfg["assumed"] = dict(cfg["assumed"], batch_images=4, steps_per_epoch=10)
