@@ -31,6 +31,7 @@ import dataclasses
 import gc
 import json
 import threading
+from pathlib import Path
 
 import pytest
 import torch
@@ -43,6 +44,7 @@ from vqvae_tpu_torch.utils import introspect
 
 torch.set_num_threads(2)
 
+ROOT = Path(__file__).resolve().parent.parent
 BATCH = 4
 PHASES = ["gan.d_real", "gan.r1_grad", "gan.d_real_backward", "ae.forward", "lpips",
           "gan.d_fake", "gan.d_fake_backward", "ae.backward", "optim", "usage"]
@@ -200,6 +202,32 @@ def test_api_calls_give_their_children(monkeypatch, tmp_path, captured):
     assert children(spans, recon) == ["quantizer.lookup", "decoder"]
     assert all(ancestors(spans, s)[-1].startswith("api.") for s in by_name(spans, "norm_act"))
     assert tokens.shape == (BATCH, 16) and images.shape == (BATCH, 16, 16, 3)
+
+
+def test_taming_attention_blocks_give_attn_spans(captured):
+    """The taming layout at 16^2 with attention at 8^2 (the benchmark
+    reference's tiny copy): ``attn`` spans (attribute ``positions``) hang
+    right under ``encoder`` (its second level and middle: 2) and under
+    ``decoder`` (its middle and the first level's two blocks: 3), and
+    ``norm_act`` still wraps every GroupNorm -> SiLU pair but the
+    attention's, whose GroupNorm has no SiLU."""
+    from benchmark.reference import taming
+    from vqvae_tpu_torch.config import parse_config
+    cfg = taming.tiny(json.loads((ROOT / "benchmark" / "configs"
+                                  / "taming_vqgan_f16.json").read_text()))
+    model = vqvae.VQVAE.from_config(
+        parse_config({k: cfg[k] for k in ("image_size", "autoencoder", "quantizer")}),
+        device="cpu", generator=torch.Generator().manual_seed(0))
+    (tokens, images), spans = captured(lambda: api_calls(model))
+    attn = by_name(spans, "attn")
+    assert [spans[s["parent"]]["name"] for s in attn] == ["encoder"] * 2 + ["decoder"] * 3
+    assert all(s["attrs"] == {"positions": 64} for s in attn)
+    assert all(children(spans, s) == [] for s in attn)
+    # two pairs per residual block, and norm_out: the encoder's 2 levels' and
+    # middle's 4 blocks, the decoder's middle's 2 and 2 levels' 4
+    assert [spans[s["parent"]]["name"] for s in by_name(spans, "norm_act")] == \
+        ["encoder"] * 9 + ["decoder"] * 13
+    assert tokens.shape == (BATCH, 64) and images.shape == (BATCH, 16, 16, 3)
 
 
 def test_remat_recomputed_spans_keep_the_stack(monkeypatch, tmp_path, captured):

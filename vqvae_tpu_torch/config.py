@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import ClassVar, Optional
 
 import yaml
 
@@ -29,14 +29,32 @@ def get_model_conf(filepath: str) -> dict:
 
 @dataclasses.dataclass(frozen=True)
 class AutoencoderConf:
+    """SerezD's layout, the published one of the example configs."""
     channels: int
     num_res_blocks: int
     channel_multipliers: tuple
-    # spatial compression factor = 2 ** len(channel_multipliers)
+    layout: ClassVar[str] = "serezd"
 
     @property
     def compression(self) -> int:
+        """Spatial compression: every level halves the image."""
         return 2 ** len(self.channel_multipliers)
+
+
+@dataclasses.dataclass(frozen=True)
+class TamingAutoencoderConf(AutoencoderConf):
+    """taming-transformers' Encoder / Decoder (``layout: taming``): attention
+    after each residual block at the resolutions in ``attn_resolutions``,
+    latents of ``z_channels`` between each half and its ``quant_conv`` /
+    ``post_quant_conv``."""
+    attn_resolutions: tuple
+    z_channels: int
+    layout: ClassVar[str] = "taming"
+
+    @property
+    def compression(self) -> int:
+        """Every level but the last halves the image."""
+        return 2 ** (len(self.channel_multipliers) - 1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,11 +147,18 @@ def _opt(d: dict, key: str, default=None):
 def parse_config(raw: dict) -> Config:
     """Validate + freeze a raw YAML dict into a Config."""
     ae = raw["autoencoder"]
-    ae_conf = AutoencoderConf(
-        channels=int(ae["channels"]),
-        num_res_blocks=int(ae["num_res_blocks"]),
-        channel_multipliers=tuple(int(m) for m in ae["channel_multipliers"]),
-    )
+    shape = dict(channels=int(ae["channels"]),
+                 num_res_blocks=int(ae["num_res_blocks"]),
+                 channel_multipliers=tuple(int(m) for m in ae["channel_multipliers"]))
+    layout = _opt(ae, "layout", "serezd")
+    if layout == "serezd":
+        ae_conf = AutoencoderConf(**shape)
+    elif layout == "taming":
+        ae_conf = TamingAutoencoderConf(
+            **shape, attn_resolutions=tuple(int(r) for r in _opt(ae, "attn_resolutions", ())),
+            z_channels=int(ae["z_channels"]))
+    else:
+        raise ValueError(f"unknown autoencoder layout: {layout!r} (serezd or taming)")
     if ae_conf.num_res_blocks < 1:
         raise ValueError(
             f"num_res_blocks must be >= 1, got {ae_conf.num_res_blocks} "

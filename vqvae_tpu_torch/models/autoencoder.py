@@ -9,7 +9,8 @@ lhs-dilated conv, the fused GN-SiLU VJP, the padded output conv) are not.
 Spans (``utils/introspect.named_scope``): ``encoder`` and ``decoder``
 around each module's forward, and ``norm_act`` in ``norm_act``, the helper
 every GroupNorm -> SiLU pair goes through (the one place a fused kernel
-would replace).
+would replace); ``attn`` (attribute ``positions``, h*w) around each taming
+attention block.
 
 ``remat=True`` checkpoints every ``ResBlock`` (the JAX modules' ``nn.remat``,
 ``vqvae_tpu/models/autoencoder.py:527,563``): its activations are recomputed
@@ -22,6 +23,16 @@ Precision policy as in the JAX package: fp32 parameters, convolutions in the
 compute ``dtype``, GroupNorm statistics in fp32. Parameters are drawn with
 torch's default conv init, U(+-1/sqrt(fan_in)) for kernels and biases, from
 an explicit ``torch.Generator``.
+
+Two layouts (``config.AutoencoderConf.layout``): ``Encoder`` / ``Decoder``
+are SerezD's (the JAX package's); ``TamingEncoder`` / ``TamingDecoder`` are
+taming-transformers' (``taming/modules/diffusionmodules/model.py``), with
+taming's own module names, conv biases everywhere, the biased GroupNorm
+variance, a padded stride-2 conv for downsampling, single-head attention
+(``AttnBlock``, span ``attn``) at the resolutions listed, a middle block in
+both halves and no output tanh; ``VQModel``'s ``quant_conv`` closes the
+encoder and its ``post_quant_conv`` opens the decoder, so each half meets
+the quantizer at the codebook's width.
 """
 
 from __future__ import annotations
@@ -42,8 +53,10 @@ class Conv2d(nn.Conv2d):
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int, bias: bool,
                  dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None):
-        super().__init__(in_ch, out_ch, kernel_size, padding=kernel_size // 2,
+                 generator: Optional[torch.Generator] = None,
+                 stride: int = 1, padding: Optional[int] = None):
+        super().__init__(in_ch, out_ch, kernel_size, stride=stride,
+                         padding=kernel_size // 2 if padding is None else padding,
                          bias=bias, device="meta")
         self.compute_dtype = dtype
         bound = 1.0 / math.sqrt(in_ch * kernel_size * kernel_size)
@@ -67,7 +80,8 @@ def _uniform(shape, bound: float, generator: Optional[torch.Generator]) -> torch
 class GroupNorm(nn.Module):
     """GroupNorm with the unbiased variance (``/(n-1)``) and fp32 statistics
     (``vqvae_tpu/models/autoencoder.py:138-169``); ``nn.GroupNorm`` is biased.
-    Output in the compute dtype.
+    ``unbiased=False`` takes the biased one (``/n``), as the taming layout
+    does. Output in the compute dtype.
 
     ``shards`` is None but while a height-sharded call runs
     (``parallel/spatial.py``): then each process holds rows of the image, and
@@ -75,11 +89,12 @@ class GroupNorm(nn.Module):
     summed over the processes, so the statistics are the whole image's."""
 
     def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-6,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, unbiased: bool = True):
         super().__init__()
         if channels % num_groups != 0:
             raise ValueError("num_channels must be divisible by num_groups")
         self.num_groups = num_groups
+        self.ddof = 1 if unbiased else 0   # the variance's divisor is n - ddof
         self.eps = eps
         self.dtype = dtype
         self.shards = None
@@ -100,7 +115,7 @@ class GroupNorm(nn.Module):
         squares = (centered * centered).sum(-1, keepdim=True)
         if self.shards is not None:
             squares = self.shards.sum(squares)
-        var = squares / max(n - 1, 1)
+        var = squares / max(n - self.ddof, 1)
         xf = (centered * torch.rsqrt(var + self.eps)).reshape(b, c, h, w)
         return (xf * self.weight + self.bias).to(self.dtype)
 
@@ -111,7 +126,18 @@ def norm_act(norm: GroupNorm, x: torch.Tensor) -> torch.Tensor:
         return F.silu(norm(x))
 
 
-class ResBlock(nn.Module):
+class _Checkpointed(nn.Module):
+    """A block whose ``_forward`` is checkpointed where autograd records and
+    ``remat`` is set; the plain forward elsewhere."""
+
+    def forward(self, x):
+        if self.remat and torch.is_grad_enabled():
+            # the block draws no random numbers: no RNG state to replay
+            return checkpoint(self._forward, x, use_reentrant=False, preserve_rng_state=False)
+        return self._forward(x)
+
+
+class ResBlock(_Checkpointed):
     """Pre-activation residual block: (GN -> SiLU -> 3x3 conv) x 2, bias-free
     convs, 1x1 shortcut when channels change (reference autoencoder.py:42-77)."""
 
@@ -126,12 +152,6 @@ class ResBlock(nn.Module):
         self.conv_shortcut = (Conv2d(in_ch, out_ch, 1, bias=False, dtype=dtype,
                                      generator=generator)
                               if in_ch != out_ch else None)
-
-    def forward(self, x):
-        if self.remat and torch.is_grad_enabled():
-            # the block draws no random numbers: no RNG state to replay
-            return checkpoint(self._forward, x, use_reentrant=False, preserve_rng_state=False)
-        return self._forward(x)
 
     def _forward(self, x):
         residual = self.conv1(norm_act(self.norm1, x))
@@ -225,3 +245,209 @@ class Decoder(nn.Module):
             x = self.conv_in(x.to(self.dtype))
             x = self.blocks(self.initial_residual(x))
             return torch.tanh(self.conv_out(norm_act(self.norm, x)).float())
+
+
+# taming-transformers' layout (taming/modules/diffusionmodules/model.py)
+
+
+class TamingResBlock(_Checkpointed):
+    """``ResnetBlock`` as the VQGAN builds it (no time embedding, dropout
+    0): (GN -> SiLU -> 3x3 conv with bias) x 2, a 1x1 ``nin_shortcut`` with
+    bias when channels change; the biased GroupNorm variance."""
+
+    def __init__(self, in_ch: int, out_ch: int, dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None, remat: bool = False):
+        super().__init__()
+        self.remat = remat
+        self.norm1 = GroupNorm(in_ch, dtype=dtype, unbiased=False)
+        self.conv1 = Conv2d(in_ch, out_ch, 3, bias=True, dtype=dtype, generator=generator)
+        self.norm2 = GroupNorm(out_ch, dtype=dtype, unbiased=False)
+        self.conv2 = Conv2d(out_ch, out_ch, 3, bias=True, dtype=dtype, generator=generator)
+        self.nin_shortcut = (Conv2d(in_ch, out_ch, 1, bias=True, dtype=dtype,
+                                    generator=generator)
+                             if in_ch != out_ch else None)
+
+    def _forward(self, x):
+        residual = self.conv1(norm_act(self.norm1, x))
+        residual = self.conv2(norm_act(self.norm2, residual))
+        if self.nin_shortcut is not None:
+            x = self.nin_shortcut(x)
+        return x + residual
+
+
+def _pointwise(conv: Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """A 1x1 conv applied to (B, positions, C) rows: a matrix product in the
+    conv's compute dtype."""
+    dt = conv.compute_dtype
+    return F.linear(x.to(dt), conv.weight.to(dt).flatten(1), conv.bias.to(dt))
+
+
+class AttnBlock(_Checkpointed):
+    """``AttnBlock``: single-head self-attention over the h*w positions,
+    x + proj_out(softmax(q k^T C^-1/2) v) with q, k, v 1x1 convs (with bias)
+    of GroupNorm(x) (no SiLU), under the span ``attn``. The 1x1 convs run
+    as matrix products on (B, h*w, C) rows, the attention as
+    ``F.scaled_dot_product_attention`` with one head of C channels."""
+
+    def __init__(self, channels: int, dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None, remat: bool = False):
+        super().__init__()
+        self.remat = remat
+        self.norm = GroupNorm(channels, dtype=dtype, unbiased=False)
+        self.q = Conv2d(channels, channels, 1, bias=True, dtype=dtype, generator=generator)
+        self.k = Conv2d(channels, channels, 1, bias=True, dtype=dtype, generator=generator)
+        self.v = Conv2d(channels, channels, 1, bias=True, dtype=dtype, generator=generator)
+        self.proj_out = Conv2d(channels, channels, 1, bias=True, dtype=dtype,
+                               generator=generator)
+
+    def _forward(self, x):
+        b, c, h, w = x.shape
+        with named_scope("attn", positions=h * w):
+            rows = self.norm(x).reshape(b, c, h * w).transpose(1, 2)
+            q, k, v = (_pointwise(m, rows)[:, None] for m in (self.q, self.k, self.v))
+            out = _pointwise(self.proj_out, F.scaled_dot_product_attention(q, k, v)[:, 0])
+            return x + out.transpose(1, 2).reshape(b, c, h, w)
+
+
+class TamingDownsample(nn.Module):
+    """``Downsample``: zero padding of one row and column at the bottom and
+    right, then a 3x3 stride-2 conv with bias."""
+
+    def __init__(self, channels: int, dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.conv = Conv2d(channels, channels, 3, bias=True, dtype=dtype, generator=generator,
+                           stride=2, padding=0)
+
+    def forward(self, x):
+        return self.conv(F.pad(x, (0, 1, 0, 1)))
+
+
+class TamingMiddle(nn.Module):
+    """``mid``: ``block_1`` -> ``attn_1`` -> ``block_2`` at the lowest
+    resolution, in both halves."""
+
+    def __init__(self, channels: int, dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None, remat: bool = False):
+        super().__init__()
+        self.block_1 = TamingResBlock(channels, channels, dtype, generator, remat)
+        self.attn_1 = AttnBlock(channels, dtype, generator, remat)
+        self.block_2 = TamingResBlock(channels, channels, dtype, generator, remat)
+
+    def forward(self, x):
+        return self.block_2(self.attn_1(self.block_1(x)))
+
+
+def _level(blocks: list, attn: list) -> nn.Module:
+    """One resolution's ``block`` and ``attn`` lists (taming's ``down[i]`` /
+    ``up[i]``); an attention block follows each residual block where the
+    resolution takes attention."""
+    level = nn.Module()
+    level.block = nn.ModuleList(blocks)
+    level.attn = nn.ModuleList(attn)
+    return level
+
+
+def _run_level(level: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    for i, block in enumerate(level.block):
+        x = block(x)
+        if len(level.attn):
+            x = level.attn[i](x)
+    return x
+
+
+class TamingEncoder(nn.Module):
+    """``Encoder`` (``double_z`` false) followed by ``quant_conv``: conv_in
+    -> per multiplier [``num_res_blocks`` residual blocks (each followed by
+    attention where the resolution is in ``attn_resolutions``) + a
+    downsample but at the last level] -> ``mid`` -> GN -> SiLU -> 3x3 conv
+    to ``z_channels`` -> 1x1 ``quant_conv`` to ``out_channels``; fp32
+    output. ``resolution``: the image side the levels' resolutions count
+    from."""
+
+    def __init__(self, channels: int, num_res_blocks: int,
+                 channel_multipliers: Sequence[int], attn_resolutions: Sequence[int],
+                 resolution: int, z_channels: int, out_channels: int,
+                 dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None, remat: bool = False):
+        super().__init__()
+        self.dtype = dtype
+        self.conv_in = Conv2d(3, channels, 3, bias=True, dtype=dtype, generator=generator)
+        self.down = nn.ModuleList()
+        ch, res = channels, resolution
+        for i, mult in enumerate(channel_multipliers):
+            blocks, attn = [], []
+            for _ in range(num_res_blocks):
+                blocks.append(TamingResBlock(ch, channels * mult, dtype, generator, remat))
+                ch = channels * mult
+                if res in attn_resolutions:
+                    attn.append(AttnBlock(ch, dtype, generator, remat))
+            level = _level(blocks, attn)
+            if i != len(channel_multipliers) - 1:
+                level.downsample = TamingDownsample(ch, dtype, generator)
+                res //= 2
+            self.down.append(level)
+        self.mid = TamingMiddle(ch, dtype, generator, remat)
+        self.norm_out = GroupNorm(ch, dtype=dtype, unbiased=False)
+        self.conv_out = Conv2d(ch, z_channels, 3, bias=True, dtype=dtype, generator=generator)
+        self.quant_conv = Conv2d(z_channels, out_channels, 1, bias=True, dtype=dtype,
+                                 generator=generator)
+
+    def forward(self, x):
+        with named_scope("encoder", images=x.shape[0]):
+            x = self.conv_in(x.to(self.dtype))
+            for level in self.down:
+                x = _run_level(level, x)
+                if hasattr(level, "downsample"):
+                    x = level.downsample(x)
+            x = self.conv_out(norm_act(self.norm_out, self.mid(x)))
+            return self.quant_conv(x).float()
+
+
+class TamingDecoder(nn.Module):
+    """1x1 ``post_quant_conv`` from ``in_channels`` to ``z_channels``, then
+    ``Decoder``: conv_in -> ``mid`` -> per multiplier from the last
+    [``num_res_blocks`` + 1 residual blocks (each followed by attention
+    where the resolution is in ``attn_resolutions``) + nearest x2 and a 3x3
+    conv but at the first level] -> GN -> SiLU -> 3x3 conv to RGB; fp32
+    output with no tanh."""
+
+    def __init__(self, channels: int, num_res_blocks: int,
+                 channel_multipliers: Sequence[int], attn_resolutions: Sequence[int],
+                 resolution: int, z_channels: int, in_channels: int,
+                 dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None, remat: bool = False):
+        super().__init__()
+        self.dtype = dtype
+        ch = channels * channel_multipliers[-1]
+        res = resolution // 2 ** (len(channel_multipliers) - 1)
+        self.post_quant_conv = Conv2d(in_channels, z_channels, 1, bias=True, dtype=dtype,
+                                      generator=generator)
+        self.conv_in = Conv2d(z_channels, ch, 3, bias=True, dtype=dtype, generator=generator)
+        self.mid = TamingMiddle(ch, dtype, generator, remat)
+        up = []
+        for i in reversed(range(len(channel_multipliers))):
+            blocks, attn = [], []
+            for _ in range(num_res_blocks + 1):
+                blocks.append(TamingResBlock(ch, channels * channel_multipliers[i], dtype,
+                                             generator, remat))
+                ch = channels * channel_multipliers[i]
+                if res in attn_resolutions:
+                    attn.append(AttnBlock(ch, dtype, generator, remat))
+            level = _level(blocks, attn)
+            if i != 0:
+                level.upsample = Upsample(ch, dtype, generator)
+                res *= 2
+            up.insert(0, level)
+        self.up = nn.ModuleList(up)
+        self.norm_out = GroupNorm(ch, dtype=dtype, unbiased=False)
+        self.conv_out = Conv2d(ch, 3, 3, bias=True, dtype=dtype, generator=generator)
+
+    def forward(self, x):
+        with named_scope("decoder", images=x.shape[0]):
+            x = self.mid(self.conv_in(self.post_quant_conv(x.to(self.dtype))))
+            for level in reversed(self.up):
+                x = _run_level(level, x)
+                if hasattr(level, "upsample"):
+                    x = level.upsample(x)
+            return self.conv_out(norm_act(self.norm_out, x)).float()

@@ -16,6 +16,10 @@ lookup); ``encoder`` and ``decoder`` are the modules' own.
 ``remat=True`` checkpoints every residual block of the encoder and decoder
 in training (``models/autoencoder.py``); it changes no value and no key.
 
+The autoencoder's layout (``config.AutoencoderConf.layout``) is SerezD's
+or taming-transformers' (``models/autoencoder.py``); the quantizer and the
+methods below are the same for both.
+
 For the gumbel quantizer the encoder emits ``num_embeddings`` channels
 (reference model.py:130); ``temp`` and ``kl_cost`` are call-time arguments
 (the schedules' values), and ``generator`` draws the gumbel noise.
@@ -29,7 +33,7 @@ import torch
 from torch import nn
 
 from vqvae_tpu_torch.config import Config
-from vqvae_tpu_torch.models.autoencoder import Decoder, Encoder
+from vqvae_tpu_torch.models.autoencoder import Decoder, Encoder, TamingDecoder, TamingEncoder
 from vqvae_tpu_torch.models.preprocess import denormalize, preprocess_batch
 from vqvae_tpu_torch.models.quantizers import codes_to_vec, make_quantizer
 from vqvae_tpu_torch.utils.introspect import named_scope
@@ -49,16 +53,28 @@ class VQVAE(nn.Module):
     def __init__(self, channels: int, num_res_blocks: int, channel_multipliers,
                  num_embeddings: int, embedding_dim: int, quantizer_type: str,
                  quantizer_params: dict, dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None, remat: bool = False):
+                 generator: Optional[torch.Generator] = None, remat: bool = False,
+                 layout: str = "serezd", attn_resolutions=(), z_channels: Optional[int] = None,
+                 resolution: Optional[int] = None):
         super().__init__()
         self.quantizer_type = quantizer_type
         self.quantizer = make_quantizer(quantizer_type, num_embeddings, embedding_dim,
                                         quantizer_params, generator)
         encoder_out = num_embeddings if quantizer_type == "gumbel" else embedding_dim
-        self.encoder = Encoder(channels, num_res_blocks, channel_multipliers,
-                               encoder_out, dtype, generator, remat)
-        self.decoder = Decoder(channels, num_res_blocks, channel_multipliers,
-                               embedding_dim, dtype, generator, remat)
+        if layout == "taming":
+            # ``resolution``: the image side, from which the levels'
+            # resolutions (and so where attention runs) are counted
+            shape = (channels, num_res_blocks, channel_multipliers, tuple(attn_resolutions),
+                     resolution, z_channels)
+            self.encoder = TamingEncoder(*shape, encoder_out, dtype, generator, remat)
+            self.decoder = TamingDecoder(*shape, embedding_dim, dtype, generator, remat)
+        elif layout == "serezd":
+            self.encoder = Encoder(channels, num_res_blocks, channel_multipliers,
+                                   encoder_out, dtype, generator, remat)
+            self.decoder = Decoder(channels, num_res_blocks, channel_multipliers,
+                                   embedding_dim, dtype, generator, remat)
+        else:
+            raise ValueError(f"unknown autoencoder layout: {layout!r}")
 
     @classmethod
     def from_config(cls, cfg: Config, dtype: torch.dtype = torch.float32,
@@ -79,6 +95,12 @@ class VQVAE(nn.Module):
             dtype=dtype,
             generator=generator,
             remat=remat,
+            # the JAX package's config, which tests hand in too, has
+            # SerezD's layout and no ``layout``
+            layout=getattr(cfg.autoencoder, "layout", "serezd"),
+            attn_resolutions=getattr(cfg.autoencoder, "attn_resolutions", ()),
+            z_channels=getattr(cfg.autoencoder, "z_channels", None),
+            resolution=cfg.image_size,
         )
         return model.to(device).eval()
 
