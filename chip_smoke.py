@@ -11,9 +11,20 @@ exit and no result line:
 1. device: card name and power limit (nvidia-smi); TF32 off for matmuls and
    convolutions, so that fp32 means fp32;
 2. build: the time nvcc takes, and ptxas's registers, shared memory and
-   spills of each kernel (B1, B2, and B3 / B4 by element type and columns
+   spills of each kernel (B1, B2, B3 / B4 by element type and columns
    per lane: B3 8 output columns on the vector path, B4 4 dYs columns, 1 on
-   their scalar paths);
+   their scalar paths, and the GroupNorm -> SiLU kernels by element type and
+   elements an access); then the GroupNorm -> SiLU kernel
+   (``gn_silu_cuda``) against ``gn_silu_reference`` at the timed shapes, a
+   ragged one, a 2048^2 fp32 image (two-pass form) and inputs whose mean is
+   50 times their spread, by ``kernel_error`` of ``tests/gn_silu_check.py``
+   (the GroupNorm within one bf16 ulp, or 4e-6 in fp32, of the affine's
+   scale; with the SiLU, ``F.silu`` of the kernel's GroupNorm bit for bit),
+   a second launch bit-identical; and its times at
+   ``GN_TIMED`` (taming's largest decoder call, the 16^2 calls of both
+   decoders, the export encoder's largest) beside its byte bound (one read
+   and one write), the plain version's and ``F.group_norm`` + ``F.silu``
+   (``library_ms``), with the form ``plan`` picks;
 3. B1 vs plain: the nearest-code kernel against ``nearest_codes_reference``
    at the tokenizer's shapes and at ragged ones (an odd D, a latent buffer
    that is not 16-byte aligned); a duplicated codebook row whose copies fall
@@ -246,9 +257,11 @@ from vqvae_tpu_torch.eval import fid as fid_module
 from vqvae_tpu_torch.eval import quality_parity
 from vqvae_tpu_torch.eval.inception import make_pool3_extractor
 from vqvae_tpu_torch.models import quantizers
+from vqvae_tpu_torch.models.autoencoder import GroupNorm
 from vqvae_tpu_torch.models.preprocess import preprocess_batch
 from vqvae_tpu_torch.models.vqvae import VQVAE
-from vqvae_tpu_torch.ops import _build, fused_dbwd, fused_dbwd_cuda, misc_ops, vq_cuda
+from vqvae_tpu_torch.ops import (_build, fused_dbwd, fused_dbwd_cuda, gn_silu, gn_silu_cuda,
+                                 misc_ops, vq_cuda)
 from vqvae_tpu_torch.ops.upfirdn2d import upfirdn2d
 from vqvae_tpu_torch.ops.vq import (code_mismatches, nearest_codes, nearest_codes_reference,
                                     nearest_codes_stats, nearest_codes_stats_reference)
@@ -265,6 +278,9 @@ from vqvae_tpu_torch.utils.convert import random_inception_npz
 from vqvae_tpu_torch.utils.introspect import check_replication
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "tests"))
+from gn_silu_check import kernel_error  # noqa: E402  (the card tests' measure)
+
 CONFIG = ROOT / "example_confs" / "standard_vqvae.yaml"
 TRAIN_CONFIG = ROOT / "example_confs" / "ema_vqvae.yaml"
 GAN_CONFIG = ROOT / "example_confs" / "gumbel_vqgan.yaml"
@@ -338,6 +354,15 @@ BENCH_SHORT = {"warmup": 1, "steps": 2, "windows": 1}   # bench (a): host steps 
 BENCH_TIMEOUT = 600         # s, bench (b)'s process
 BENCH_FP32_STEPS = 4        # serve (e): calls per window of the fp32 bench_infer run
 GRID_SHARE = 1e-10          # serve (f): float64 card vs CPU, share of the largest entry
+# GroupNorm -> SiLU (phase 2): the timed calls (B, C, H, W), dtype, ddof; the
+# checked ones also with the input's mean and spread
+GN_TIMED = [((32, 128, 256, 256), torch.bfloat16, 0), ((32, 512, 16, 16), torch.bfloat16, 0),
+            ((256, 128, 256, 256), torch.float32, 1)]
+GN_CHECKED = [case + (1.5, 2.0) for case in GN_TIMED] + [
+    ((2, 64, 7, 9), torch.bfloat16, 1, 1.5, 2.0),
+    ((1, 128, 2048, 2048), torch.float32, 1, 1.5, 2.0),
+    ((2, 128, 256, 256), torch.bfloat16, 0, 50.0, 1.0),
+    ((2, 128, 256, 256), torch.float32, 1, -50.0, 1.0)]
 # published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): fp32 on the
 # CUDA cores, TF32 on the tensor cores (dense), and device memory
 FP32_FLOPS = 67e12
@@ -407,8 +432,9 @@ def ptxas_summary(report: str) -> list[str]:
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
             kernel = re.search(r"(nearest_codes[a-z_]*?_kernel)(ILb([01])E)?", entry.group(1))
-            dbwd = re.search(r"(blur_t_gate_kernel|skip_fanout_bwd_kernel)I(f|13__nv_bfloat16)"
-                             r"Li(\d+)E", entry.group(1))
+            dbwd = re.search(r"(blur_t_gate_kernel|skip_fanout_bwd_kernel|gn_silu_cluster_kernel"
+                             r"|gn_stats_kernel|gn_apply_kernel)I(f|13__nv_bfloat16)Li(\d+)E",
+                             entry.group(1))
             if dbwd:
                 dtype = "float" if dbwd.group(2) == "f" else "bf16"
                 name = f"{dbwd.group(1)}<{dtype}, {dbwd.group(3)}>"
@@ -427,19 +453,80 @@ def ptxas_summary(report: str) -> list[str]:
 
 
 def phase_build() -> None:
-    names = ("nearest_codes", "nearest_codes_stats", "fused_dbwd")
+    names = ("nearest_codes", "nearest_codes_stats", "fused_dbwd", "gn_silu")
     fresh = [n for n in names if not _build.library_path(n).exists()]
     t0 = time.perf_counter()
     reports = _build.build(names)
     vq_cuda.library()
     vq_cuda.stats_library()
     fused_dbwd_cuda.library()
+    gn_silu_cuda.library()
     print(f"build: {', '.join(f'{n}.cu' for n in names)}: {len(fresh)} built, in parallel, "
           f"in {time.perf_counter() - t0:.2f} s -> "
           f"{', '.join(str(_build.library_path(n).relative_to(ROOT)) for n in names)}")
-    for lib in ("nearest_codes", "nearest_codes_stats", "fused_dbwd"):
+    for lib in names:
         for line in ptxas_summary(reports.get(lib, "")):
             print(f"ptxas {lib}.cu: {line}")
+
+
+def _gn_case(shape, dtype, gen, mean=1.5, std=2.0):
+    x = (mean + std * torch.randn(shape, device=gen.device, generator=gen)).to(dtype)
+    w = 1 + 0.5 * torch.randn(1, shape[1], 1, 1, device=gen.device, generator=gen)
+    b = 0.5 * torch.randn(1, shape[1], 1, 1, device=gen.device, generator=gen)
+    return x, w, b
+
+
+def phase_gn_silu(device, card: str) -> tuple:
+    """The GroupNorm -> SiLU kernel against its plain version at
+    ``GN_CHECKED``, then its times at ``GN_TIMED``; -> (worst share of the
+    limit, {shape: times} of the timed calls)."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 11)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    worst = 0.0
+    for shape, dtype, ddof, mean, std in GN_CHECKED:
+        name = str(dtype).removeprefix("torch.")
+        x, w, b = _gn_case(shape, dtype, gen, mean, std)
+        n = (shape[1] // 32) * shape[2] * shape[3]
+        form = gn_silu_cuda.plan(shape[0] * 32, n, shape[2] * shape[3], x.element_size(), True,
+                                 sms)
+        norm = gn_silu_cuda.gn_silu_cuda(x, w, b, 32, 1e-6, ddof, False)
+        act = gn_silu_cuda.gn_silu_cuda(x, w, b, 32, 1e-6, ddof, True)
+        share = kernel_error(x, w, b, 32, 1e-6, ddof, norm, act)
+        same = torch.equal(act, gn_silu_cuda.gn_silu_cuda(x, w, b, 32, 1e-6, ddof, True))
+        print(f"gn_silu vs plain {shape} {name} ddof {ddof}, input mean {mean} std {std} "
+              f"({form}): worst share of the limit {share:.3f} (the SiLU's output is F.silu of "
+              f"the kernel's GroupNorm bit for bit where finite); second launch "
+              f"{'bit-identical' if same else 'DIFFERENT'}")
+        check(share <= 1 and same, f"gn_silu vs plain {shape} {name}")
+        worst = max(worst, share)
+        del x, norm, act
+        torch.cuda.empty_cache()
+    rows = {}
+    for shape, dtype, ddof in GN_TIMED:
+        name = str(dtype).removeprefix("torch.")
+        x, w, b = _gn_case(shape, dtype, gen)
+        wl, bl = w.flatten().to(dtype), b.flatten().to(dtype)
+
+        def kernel():
+            return gn_silu_cuda.gn_silu_cuda(x, w, b, 32, 1e-6, ddof, True)
+
+        reps = max(2, min(200, int(2e8 // x.numel())))
+        t = _turns({"plain": lambda: gn_silu.gn_silu_reference(x, w, b, 32, 1e-6, ddof, dtype),
+                    "kernel": kernel,
+                    "library": lambda: torch.nn.functional.silu(
+                        torch.nn.functional.group_norm(x, 32, wl, bl, 1e-6))}, reps=reps)
+        b_ms, b_by = bound(0, 2 * x.numel() * x.element_size())
+        dev = sum(device_ms(kernel, "gn_").values()) or None
+        rows[shape] = ({k: v[0] for k, v in t.items()}
+                       | {"bound": b_ms, "bound_by": b_by, "device": dev})
+        print(f"time [{card}]: gn_silu {shape} {name} kernel {t['kernel'][0]:.4f} ms (windows "
+              f"{t['kernel'][1][0]:.4f}, {t['kernel'][1][1]:.4f}; device {_ms(dev)}), plain "
+              f"{t['plain'][0]:.4f} ms, F.group_norm + F.silu {t['library'][0]:.4f} ms; bound "
+              f"{b_ms:.4f} ms (bytes: one read and one write; the kernel reaches "
+              f"{b_ms / t['kernel'][0]:.1%} of it, its device time {_reach(b_ms, dev)})")
+        del x
+        torch.cuda.empty_cache()
+    return worst, rows
 
 
 def _agree(x, cb, got, want, what: str) -> float:
@@ -527,21 +614,25 @@ def phase_slice(cfg, device):
     size = cfg.image_size
     batches = {b: torch.rand(b, size, size, 3, device=device, generator=gen) for b in BATCHES}
 
-    nearest_codes.launches = 0
-    nearest_codes_stats.launches = 0
+    _reset_counts()
     outputs = {}
     for b, images in batches.items():
         tokens = model.get_tokens(images)
         recon = model.reconstruct(images)
         outputs[b] = (tokens, recon, model.reconstruct_from_tokens(tokens))
     torch.cuda.synchronize()
-    launches = nearest_codes.launches
-    print(f"slice: {2 * len(BATCHES)} tokenizer calls launched the nearest_codes kernel "
-          f"{launches} times, nearest_codes_stats {nearest_codes_stats.launches} times")
+    launches, gn = nearest_codes.launches, gn_silu.gn_silu.launches
+    enc, dec = _norm_calls(CONFIG)
+    print(f"slice: {3 * len(BATCHES)} tokenizer calls launched the nearest_codes kernel "
+          f"{launches} times, nearest_codes_stats {nearest_codes_stats.launches} times, "
+          f"gn_silu {gn} times ({enc} an encoder, {dec} a decoder)")
     # one launch per get_tokens and one per reconstruct, at every batch size
     check(launches == 2 * len(BATCHES) and nearest_codes_stats.launches == 0,
           f"the tokenizer path launched the nearest_codes kernel {2 * len(BATCHES)} times "
           "and nearest_codes_stats never")
+    # get_tokens an encoder, reconstruct both, reconstruct_from_tokens a decoder
+    check((enc, dec) == (21, 21) and gn == len(BATCHES) * 2 * (enc + dec),
+          f"the tokenizer path launched gn_silu {len(BATCHES) * 2 * (enc + dec)} times")
 
     n_codes = cfg.quantizer.num_embeddings
     seq = cfg.latent_size ** 2
@@ -567,7 +658,7 @@ def phase_slice(cfg, device):
               f"|reconstruct_from_tokens(get_tokens(x)) - reconstruct(x)| max {err:.3e} "
               f"(atol {RECON_ATOL})")
         check(err <= RECON_ATOL, f"reconstruct_from_tokens(get_tokens(x)) vs reconstruct(x) b={b}")
-    return model, launches, max_gap
+    return model, launches, gn, max_gap
 
 
 def _stats_agree(x, cb, got, what: str) -> float:
@@ -997,6 +1088,18 @@ def _dbwd_counts():
 def _reset_counts():
     nearest_codes.launches = nearest_codes_stats.launches = 0
     fused_dbwd.blur_t_gate.launches = fused_dbwd.skip_fanout_bwd.launches = 0
+    gn_silu.gn_silu.launches = 0
+
+
+def _norm_calls(config) -> tuple:
+    """(encoder, decoder) GroupNorm calls of one forward of ``config``'s
+    model, one a GroupNorm module (built on the meta device): 21 and 21 in
+    SerezD's layout. Each is one ``gn_silu`` kernel where autograd does not
+    record (the cluster form at every shape of these phases)."""
+    with torch.device("meta"):
+        model = VQVAE.from_config(load_config(str(config)), device="meta")
+    return tuple(sum(isinstance(m, GroupNorm) for m in part.modules())
+                 for part in (model.encoder, model.decoder))
 
 
 class _ShapeTally:
@@ -1135,9 +1238,10 @@ def phase_gan(cfg, device, card: str):
     b3, b4 = _dbwd_counts()
     check(nearest_codes.launches == 0 and nearest_codes_stats.launches == 0,
           "the GAN path launched neither nearest_codes nor nearest_codes_stats")
+    check(gn_silu.gn_silu.launches == 0, "the GAN's train steps launched no gn_silu (autograd)")
     check(b3 > 0 and b4 > 0, "the GAN path launched B3 and B4")
     print(f"gan slice: {2 * GAN_STEPS} train steps launched blur_t_gate {b3} times, "
-          f"skip_fanout_bwd {b4} times, nearest_codes 0, nearest_codes_stats 0")
+          f"skip_fanout_bwd {b4} times, nearest_codes 0, nearest_codes_stats 0, gn_silu 0")
     for kind, counts in shape_launches.items():
         print(f"gan slice bf16 {kind} step: launches by shape "
               + ", ".join(f"{k} {shape} x{n}" for (k, shape), n in sorted(counts.items())))
@@ -1599,11 +1703,11 @@ def _evaluate_cli(params: str, data: Path, ckpt: Path):
     return results, seen
 
 
-def _eval_leg(tmp: Path, card: str, device, weights: str) -> int:
+def _eval_leg(tmp: Path, card: str, device, weights: str) -> tuple:
     """The eval CLI on the EMA leg's ``last/`` snapshot (ema_vqvae.yaml, N =
     4096) with ``nearest_codes`` forced to its plain version, then as it is
-    (B1); the card's Inception against the CPU's. -> B1 launches of the
-    second run."""
+    (B1); the card's Inception against the CPU's. -> (B1, gn_silu) launches
+    of the second run."""
     params, ckpt = str(tmp / "ema_accum.yaml"), tmp / "ckpt" / "ema" / "last"
     # the plain run first: it pays the fp32 set-up, so the B1 run is timed warm
     _reset_counts()
@@ -1615,14 +1719,17 @@ def _eval_leg(tmp: Path, card: str, device, weights: str) -> int:
     with _CodeSpy(nearest_codes) as spy:
         results, t = _evaluate_cli(params, tmp / "data", ckpt)
     torch.cuda.synchronize()
-    b1 = nearest_codes.launches
+    b1, gn = nearest_codes.launches, gn_silu.gn_silu.launches
     batches = EVAL_IMAGES // EVAL_BATCH
+    pairs = sum(_norm_calls(TRAIN_CONFIG))
     print(f"eval: {{{', '.join(f'{k}: {v:.6f}' for k, v in results.items())}}}; "
-          f"nearest_codes launched {b1} times in {batches} eval batches")
+          f"nearest_codes launched {b1} times, gn_silu {gn} times in {batches} eval batches")
     check("rfid" in results and all(math.isfinite(v) for v in results.values()),
           "eval: every metric finite, rFID present")
     check(b1 == batches and nearest_codes_stats.launches == 0,
           f"eval: nearest_codes launched once per eval batch ({batches}), B2 never")
+    check(gn == batches * pairs,
+          f"eval: gn_silu launched {pairs} times per eval batch (an encoder and a decoder)")
     x, cb, codes = spy.rows()
     x_plain, _, codes_plain = plain_spy.rows()
     check(torch.equal(x, x_plain), "eval: the same latents in both runs")
@@ -1669,7 +1776,7 @@ def _eval_leg(tmp: Path, card: str, device, weights: str) -> int:
     print(f"time [{card}]: Inception (uint8 {images.shape[1]}^2 -> resize 299 -> pool3, fp32, "
           f"TF32 off, features to the host) batch {EVAL_BATCH}: {ms:.2f} ms, "
           f"{EVAL_BATCH * 1000 / ms:.1f} images/s")
-    return b1
+    return b1, gn
 
 
 class _TokenSpy:
@@ -1700,10 +1807,10 @@ class _TokenSpy:
         self.n = [n for _, _, n in self._events]
 
 
-def _tokenize_leg(tmp: Path, card: str, device, config: Path) -> int:
+def _tokenize_leg(tmp: Path, card: str, device, config: Path) -> tuple:
     """The token-export CLI at full width on ``config`` from seeded random
     weights saved as a port snapshot, over the cli phase's train.pack. ->
-    B1 launches."""
+    (B1, gn_silu) launches."""
     name = config.stem
     trainer = Trainer(load_config(str(config)), learning_rate=1e-4, seed=SEED,
                       steps_per_epoch=1, device=device)
@@ -1722,10 +1829,14 @@ def _tokenize_leg(tmp: Path, card: str, device, config: Path) -> int:
                                       "--dataloader", "packed", "--workers", "4",
                                       "--seed", str(SEED)])
         wall = time.perf_counter() - t0
-    b1 = nearest_codes.launches
+    b1, gn = nearest_codes.launches, gn_silu.gn_silu.launches
     n_batches = -(-CLI_TRAIN_IMAGES // TOKENIZE_BATCH)
     check(b1 == n_batches and nearest_codes_stats.launches == 0,
           f"tokenize {name}: nearest_codes launched once per batch ({n_batches}), B2 never")
+    enc = _norm_calls(config)[0]
+    print(f"tokenize {name}: gn_silu launched {gn} times in {n_batches} batches")
+    check(gn == n_batches * enc,
+          f"tokenize {name}: gn_silu launched {enc} times per batch (an encoder)")
     tokens = np.load(out / "train_tokens.npy")
     x, cb, codes = spy.rows()
     seq = manifest["latent_tokens"]
@@ -1742,7 +1853,7 @@ def _tokenize_leg(tmp: Path, card: str, device, config: Path) -> int:
           f"{TOKENIZE_BATCH * 1000 / steady:.1f} images/s; the CLI's wall time {wall:.2f} s (snapshot load, loader and .npy "
           f"included), {CLI_TRAIN_IMAGES / wall:.1f} images/s; nearest_codes launched {b1} "
           f"times; {len(np.unique(tokens))} distinct tokens")
-    return b1
+    return b1, gn
 
 
 class _QuantizerCalls:
@@ -1815,7 +1926,7 @@ def phase_eval(card: str, device, tmp: Path) -> dict:
     """The eval and token-export CLIs in process on the card, on the cli
     phase's packs and snapshots under ``tmp`` plus a seeded test.pack and
     seeded Inception weights, then the entropy quantizer's train steps.
-    -> this phase's B1 launches, by leg."""
+    -> (this phase's B1 launches, its gn_silu launches), each by leg."""
     size = load_config(str(TRAIN_CONFIG)).image_size
     rs = np.random.RandomState(SEED + 11)
     write_packed(str(tmp / "data" / "test.pack"),
@@ -1823,13 +1934,14 @@ def phase_eval(card: str, device, tmp: Path) -> dict:
                   for _ in range(EVAL_IMAGES)), size)
     weights = random_inception_npz(tmp / "inception_fid.npz", seed=SEED + 12)
     with mock.patch.dict(os.environ, {"VQVAE_TPU_INCEPTION_WEIGHTS": weights}):
-        launches = {"eval": _eval_leg(tmp, card, device, weights)}
+        found = {"eval": _eval_leg(tmp, card, device, weights)}
     torch.cuda.empty_cache()
     for config in (CONFIG, ENTROPY_CONFIG):
-        launches[f"tokenize {config.stem}"] = _tokenize_leg(tmp, card, device, config)
+        found[f"tokenize {config.stem}"] = _tokenize_leg(tmp, card, device, config)
         torch.cuda.empty_cache()
     _entropy_steps(card, device)
-    return launches
+    return ({leg: b1 for leg, (b1, _) in found.items()},
+            {leg: gn for leg, (_, gn) in found.items()})
 
 
 def _run_quiet(cmd: list, what: str, env=None) -> None:
@@ -2312,10 +2424,10 @@ def _serve_import(tmp: Path, card: str, device) -> int:
     ``gumbel_vqgan.yaml`` as reference checkpoints, through
     ``cli.import_torch_checkpoint`` and ``restore_for_eval`` (a Trainer of
     the config, as the CLIs build it): the same weights, and ``get_tokens``
-    at batch SERVE_BATCH equal to the source model's on every row. -> B1
-    launches."""
+    at batch SERVE_BATCH equal to the source model's on every row. -> (B1,
+    gn_silu) launches."""
     gen = torch.Generator(device=device).manual_seed(SEED + 20)
-    launches = 0
+    launches = gn_launches = 0
     for config in (CONFIG, GAN_CONFIG):
         cfg = load_config(str(config))
         gumbel = cfg.quantizer.type == "gumbel"
@@ -2340,21 +2452,24 @@ def _serve_import(tmp: Path, card: str, device) -> int:
         want = source.get_tokens(images, **kw)
         got = model.get_tokens(images, **kw)
         torch.cuda.synchronize()
-        b1 = nearest_codes.launches
+        b1, gn = nearest_codes.launches, gn_silu.gn_silu.launches
         rows = int((got != want).any(1).sum())
         print(f"serve (a) [{card}]: {config.stem} reference checkpoint -> "
               f"cli.import_torch_checkpoint ({t_import:.2f} s) -> restore_for_eval: weights "
               f"equal; get_tokens{' deterministic' if gumbel else ''} batch {SERVE_BATCH}: "
               f"{rows} of {SERVE_BATCH} rows differ from the source model's; B1 launched "
-              f"{b1} times")
+              f"{b1} times, gn_silu {gn}")
         check(rows == 0 and torch.equal(got, want),
               f"serve (a) {config.stem}: the imported model's tokens are the source's")
         check(b1 == (0 if gumbel else 2),
               f"serve (a) {config.stem}: B1 once per standard get_tokens, never for gumbel")
+        enc = _norm_calls(config)[0]
+        check(gn == 2 * enc, f"serve (a) {config.stem}: gn_silu {enc} times per get_tokens")
         launches += b1
+        gn_launches += gn
         del source, model, trainer
         torch.cuda.empty_cache()
-    return launches
+    return launches, gn_launches
 
 
 def _spatial_images() -> torch.Tensor:
@@ -2653,9 +2768,9 @@ def phase_serve(card: str, device, tmp: Path) -> tuple:
     latents; (e) ``bench_infer``; (f) ``grid_sample``'s second order on the
     card; (g) the probe's largest image split over 2 gloo ranks against its
     single-process tokens. -> (B1 launches, B1's row at the probe's shape,
-    its score gap)."""
+    its score gap, leg (a)'s gn_silu launches)."""
     torch.cuda.empty_cache()
-    launches, b1_large, gap, top_call = 0, None, 0.0, None
+    launches, b1_large, gap, top_call, gn = 0, None, 0.0, None, 0
     for leg, fn in (("a", lambda: _serve_import(tmp, card, device)),
                     ("b", lambda: _serve_spatial(tmp, card, device)),
                     ("c", lambda: _serve_tokenize_nccl(tmp, card)),
@@ -2665,6 +2780,8 @@ def phase_serve(card: str, device, tmp: Path) -> tuple:
                     ("g", lambda: _serve_probe_split(tmp, card, device, top_call))):
         t0 = time.perf_counter()
         found = fn()
+        if leg == "a":
+            found, gn = found
         if leg == "d":
             found, b1_large, gap, top_call = found
         n = found if isinstance(found, int) else 0
@@ -2672,7 +2789,7 @@ def phase_serve(card: str, device, tmp: Path) -> tuple:
         torch.cuda.empty_cache()
         print(f"time [{card}]: serve ({leg}) took {time.perf_counter() - t0:.1f} s; B1 "
               f"launches {n}")
-    return launches, b1_large, gap
+    return launches, b1_large, gap, gn
 
 
 def _tools_chain(tmp: Path, card: str, device) -> None:
@@ -2680,7 +2797,8 @@ def _tools_chain(tmp: Path, card: str, device) -> None:
     of seeded full-width ``gumbel_vqgan.yaml`` and ``entropy_vqvae.yaml``
     models, the eval phase's test.pack and Inception weights: every metric
     line parses, and each run's metrics equal, to every printed digit,
-    those of ``cli.evaluate`` on a port snapshot of the same weights."""
+    those of ``cli.evaluate`` on a port snapshot of the same weights. ->
+    gn_silu launches of the two ``cli.evaluate`` runs."""
     root = tmp / "tools_a"
     fixdir = root / "fixtures"
     weights = tmp / "inception_fid.npz"
@@ -2701,15 +2819,23 @@ def _tools_chain(tmp: Path, card: str, device) -> None:
     t_chain = time.perf_counter() - t0
     check(code == 0, f"tools (a): the chain's dry run exits 0 ({code})")
     batch = cli_quality_parity.parse_args([]).batch
+    gn = 0
     for config in (GAN_CONFIG, ENTROPY_CONFIG):
         name = f"{config.stem}_model"
         log = root / "cache" / "quality_parity_torch" / f"eval_{name}.txt"
         logged = quality_parity.parse_metrics(log.read_text())
+        _reset_counts()
         with mock.patch.dict(os.environ, {"VQVAE_TPU_INCEPTION_WEIGHTS": str(weights)}):
             direct = cli_evaluate.main(["--params_file", str(config), "--dataset_path",
                                         str(tmp / "data"), "--dataloader", "packed",
                                         "--batch_size", str(batch), "--seed", "42",
                                         "--loading_path", str(root / "direct" / config.stem)])
+        torch.cuda.synchronize()
+        batches, pairs = -(-EVAL_IMAGES // batch), sum(_norm_calls(config))
+        check(gn_silu.gn_silu.launches == batches * pairs,
+              f"tools (a) {name}: cli.evaluate launched gn_silu {pairs} times per batch "
+              f"({gn_silu.gn_silu.launches} in {batches})")
+        gn += gn_silu.gn_silu.launches
         printed = {k: float(f"{v:.6f}") for k, v in direct.items()}
         print(f"tools (a) [{card}]: {name}: the chain's log "
               + ", ".join(f"{k} {v}" for k, v in logged.items())
@@ -2719,7 +2845,8 @@ def _tools_chain(tmp: Path, card: str, device) -> None:
               f"tools (a) {name}: every metric line, rFID included, parses")
         check(logged == printed, f"tools (a) {name}: the chain's metrics are cli.evaluate's")
     print(f"time [{card}]: tools (a) the chain's dry run, 2 runs of {EVAL_IMAGES} images at "
-          f"batch {batch}: {t_chain:.1f} s")
+          f"batch {batch}: {t_chain:.1f} s; cli.evaluate launched gn_silu {gn} times")
+    return gn
 
 
 def _tools_input(tmp: Path, card: str, step_ips: float) -> None:
@@ -2802,17 +2929,20 @@ def _tools_profile(card: str) -> None:
 def phase_tools(card: str, device, tmp: Path, step_ips: float) -> dict:
     """The three tools on the card: (a) the quality-parity chain's dry run;
     (b) the loaders' images/s; (c) the train step's decomposition; (d) the
-    ``step`` profile of ``gan_r1``. -> B3 / B4 launches."""
+    ``step`` profile of ``gan_r1``. -> B3 / B4 launches, and (a)'s gn_silu
+    launches."""
     torch.cuda.empty_cache()
-    launches = {"blur_t_gate": 0, "skip_fanout_bwd": 0}
+    launches = {"blur_t_gate": 0, "skip_fanout_bwd": 0, "gn_silu": 0}
     for leg, fn in (("a", lambda: _tools_chain(tmp, card, device)),
                     ("b", lambda: _tools_input(tmp, card, step_ips)),
                     ("c", lambda: _tools_breakdown(card)),
                     ("d", lambda: _tools_profile(card))):
         t0 = time.perf_counter()
         found = fn()
+        if leg == "a":
+            launches["gn_silu"] = found
         if leg == "c":
-            launches = {"blur_t_gate": found[0], "skip_fanout_bwd": found[1]}
+            launches.update(blur_t_gate=found[0], skip_fanout_bwd=found[1])
         torch.cuda.empty_cache()
         print(f"time [{card}]: tools ({leg}) took {time.perf_counter() - t0:.1f} s")
     return launches
@@ -3305,9 +3435,10 @@ def main() -> None:
     t0 = time.perf_counter()
     card = phase_device()
     phase_build()
+    gn_worst, gn_times = phase_gn_silu(device, card)
     kernel_gap = phase_kernel(device)
     cfg = load_config(str(CONFIG))
-    model, b1_tokenizer, slice_gap = phase_slice(cfg, device)
+    model, b1_tokenizer, gn_slice, slice_gap = phase_slice(cfg, device)
     stats_err = phase_stats_kernel(device)
     train_cfg = load_config(str(TRAIN_CONFIG))
     b1_train, b2_train = phase_train(train_cfg, device, card)
@@ -3327,16 +3458,16 @@ def main() -> None:
         print(f"time [{card}]: cli: the phase took {time.perf_counter() - t_cli:.1f} s; "
               f"launches {cli}")
         t_eval = time.perf_counter()
-        evals = phase_eval(card, device, tmp)
+        evals, gn_evals = phase_eval(card, device, tmp)
         b1_eval = sum(evals.values())
         print(f"time [{card}]: eval: the phase took {time.perf_counter() - t_eval:.1f} s; "
-              f"nearest_codes launches {evals}, {b1_eval} in all")
+              f"nearest_codes launches {evals}, {b1_eval} in all; gn_silu {gn_evals}")
         t_ddp = time.perf_counter()
         ddp = phase_ddp(card, device, tmp)
         print(f"time [{card}]: ddp: the phase took {time.perf_counter() - t_ddp:.1f} s; "
               f"launches, every rank's {ddp}")
         t_serve = time.perf_counter()
-        b1_serve, b1_large, large_gap = phase_serve(card, device, tmp)
+        b1_serve, b1_large, large_gap, gn_serve = phase_serve(card, device, tmp)
         print(f"time [{card}]: serve: the phase took {time.perf_counter() - t_serve:.1f} s; "
               f"nearest_codes launches, every rank's {b1_serve}")
         t_tools = time.perf_counter()
@@ -3415,6 +3546,21 @@ def main() -> None:
            "ddp_launches": ddp.get("skip_fanout_bwd", 0),
            "tools_launches": tools["skip_fanout_bwd"], "remat_launches": remat["skip_fanout_bwd"],
            "bench_launches": benched["skip_fanout_bwd"]},
+        # launches: the main paths' kernels, each phase's counted from 0 and
+        # checked against its GroupNorm calls (21 an encoder or decoder): the
+        # tokenizer path's (slice_launches), the eval and token-export CLIs'
+        # by leg (eval_launches), serve (a)'s imported models' get_tokens
+        # (serve_launches), tools (a)'s cli.evaluate (tools_launches); the
+        # GAN's train steps launch none (train_launches); max_abs_err: the
+        # worst share of the limit over the checked shapes (<= 1); times at
+        # taming's largest decoder call, bf16
+        _record("gn_silu", "vqvae_tpu_torch/csrc/gn_silu.cu",
+                "none (the JAX package's GNSiLU, vqvae_tpu/models/autoencoder.py:172, is XLA)",
+                gn_slice + sum(gn_evals.values()) + gn_serve + tools["gn_silu"], gn_worst,
+                GN_TIMED[0][0], gn_times[GN_TIMED[0][0]])
+        | {"dtype": "bfloat16", "device_ms": gn_times[GN_TIMED[0][0]]["device"],
+           "slice_launches": gn_slice, "eval_launches": gn_evals, "serve_launches": gn_serve,
+           "tools_launches": tools["gn_silu"], "train_launches": 0},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

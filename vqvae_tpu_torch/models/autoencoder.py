@@ -6,11 +6,21 @@ weights both ways. The plain forms are carried: the JAX package's exact TPU
 rewrites (pool folded into a stride-2 conv, upsample folded into an
 lhs-dilated conv, the fused GN-SiLU VJP, the padded output conv) are not.
 
+GroupNorm -> SiLU: where autograd does not record (eval, serving, token
+export: ``torch.is_grad_enabled()`` false, as under the API's
+``inference_mode``) outside a height-sharded call (``GroupNorm.takes_kernel``),
+``norm_act`` and the attention blocks' GroupNorm go to ``ops/gn_silu.gn_silu``:
+on a CUDA tensor one hand-written kernel (``csrc/gn_silu.cu``) computes the
+pair, or the GroupNorm alone; an input in another dtype than the module's
+raises, on every device. Training under autograd and the sharded path run
+the module's own form (``ops/gn_silu.gn_silu_reference``): the kernel has no
+backward and no statistics across processes.
+
 Spans (``utils/introspect.named_scope``): ``encoder`` and ``decoder``
 around each module's forward, and ``norm_act`` in ``norm_act``, the helper
-every GroupNorm -> SiLU pair goes through (the one place a fused kernel
-would replace); ``attn`` (attribute ``positions``, h*w) around each taming
-attention block.
+every GroupNorm -> SiLU pair goes through, one span a pair whichever form
+runs; ``attn`` (attribute ``positions``, h*w) around each taming attention
+block.
 
 ``remat=True`` checkpoints every ``ResBlock`` (the JAX modules' ``nn.remat``,
 ``vqvae_tpu/models/autoencoder.py:527,563``): its activations are recomputed
@@ -45,6 +55,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from vqvae_tpu_torch.ops.gn_silu import gn_silu, gn_silu_reference
 from vqvae_tpu_torch.utils.introspect import named_scope
 
 
@@ -84,9 +95,8 @@ class GroupNorm(nn.Module):
     does. Output in the compute dtype.
 
     ``shards`` is None but while a height-sharded call runs
-    (``parallel/spatial.py``): then each process holds rows of the image, and
-    the two passes' sums (for the mean, then of the centred squares) are
-    summed over the processes, so the statistics are the whole image's."""
+    (``parallel/spatial.py``): then the statistics are summed over the
+    processes (``ops/gn_silu.gn_silu_reference``)."""
 
     def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-6,
                  dtype: torch.dtype = torch.float32, unbiased: bool = True):
@@ -101,28 +111,29 @@ class GroupNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(1, channels, 1, 1))
         self.bias = nn.Parameter(torch.zeros(1, channels, 1, 1))
 
+    def takes_kernel(self) -> bool:
+        """Whether a call goes to ``gn_silu``: autograd does not record and
+        no sharded call runs."""
+        return not torch.is_grad_enabled() and self.shards is None
+
+    def normalize(self, x: torch.Tensor, act: bool) -> torch.Tensor:
+        """``gn_silu`` of ``x`` with this module's parameters."""
+        return gn_silu(x, self.weight, self.bias, self.num_groups, self.eps, self.ddof,
+                       self.dtype, act)
+
     def forward(self, x):
-        b, c, h, w = x.shape
-        g = self.num_groups
-        n = (c // g) * h * w
-        xg = x.float().reshape(b, g, n)
-        if self.shards is None:
-            mean = xg.mean(-1, keepdim=True)
-        else:
-            n *= self.shards.size
-            mean = self.shards.sum(xg.sum(-1, keepdim=True)) / n
-        centered = xg - mean
-        squares = (centered * centered).sum(-1, keepdim=True)
-        if self.shards is not None:
-            squares = self.shards.sum(squares)
-        var = squares / max(n - self.ddof, 1)
-        xf = (centered * torch.rsqrt(var + self.eps)).reshape(b, c, h, w)
-        return (xf * self.weight + self.bias).to(self.dtype)
+        if self.takes_kernel():
+            return self.normalize(x, act=False)
+        return gn_silu_reference(x, self.weight, self.bias, self.num_groups, self.eps,
+                                 self.ddof, self.dtype, act=False, shards=self.shards)
 
 
 def norm_act(norm: GroupNorm, x: torch.Tensor) -> torch.Tensor:
-    """SiLU(norm(x)), under the span ``norm_act``."""
+    """SiLU(norm(x)), under the span ``norm_act``: ``gn_silu`` where
+    ``norm.takes_kernel()``, else the module's form and ``F.silu``."""
     with named_scope("norm_act"):
+        if norm.takes_kernel():
+            return norm.normalize(x, act=True)
         return F.silu(norm(x))
 
 
