@@ -20,6 +20,10 @@ the CPU, for the four quantizers (32^2 images, channels 32, multipliers
   its initial values, with an optimizer state) go through the two-step
   export / import to the same result and keep their ``step``.
 - A missing, extra or misshapen key raises, naming it, on both routes.
+- The importer's template is the model the port builds, key for key and
+  shape for shape, for every ``example_confs/*.yaml`` (the taming layout
+  among them), and a tiny taming-layout model's own ``state_dict`` goes
+  through the import CLI unchanged.
 """
 
 import functools
@@ -41,11 +45,12 @@ from vqvae_tpu.utils.checkpoint import CheckpointManager as JaxCheckpointManager
 from vqvae_tpu.utils.checkpoint import save_eval_checkpoint as jax_save_eval_checkpoint
 from vqvae_tpu.utils.torch_convert import convert_vqvae_state_dict as jax_convert
 from vqvae_tpu_torch.cli import import_jax_checkpoint, import_torch_checkpoint
-from vqvae_tpu_torch.config import parse_config
+from vqvae_tpu_torch.config import load_config, parse_config
 from vqvae_tpu_torch.models.vqvae import VQVAE
 from vqvae_tpu_torch.train.loop import Trainer
 from vqvae_tpu_torch.utils.checkpoint import restore_for_eval
 from vqvae_tpu_torch.utils.convert import convert_vqvae_variables
+from vqvae_tpu_torch.utils.torch_import import vqvae_template
 
 torch.set_num_threads(2)
 
@@ -303,3 +308,45 @@ def test_reference_discriminator_state_dict(fault):
     disc = Discriminator(16, channel_base=256, device="cpu")
     disc.load_state_dict(got, strict=True)
     assert got.keys() == want.keys() and all(torch.equal(got[k], want[k]) for k in want)
+
+
+@pytest.mark.parametrize("params_file", sorted((REPO / "example_confs").glob("*.yaml")),
+                         ids=lambda p: p.stem)
+def test_import_template_is_the_model(params_file):
+    """``vqvae_template`` has the keys and shapes of ``VQVAE.from_config``
+    for every example config (both on the meta device: no weights drawn)."""
+    cfg = load_config(str(params_file))
+    with torch.device("meta"):
+        want = VQVAE.from_config(cfg, device="meta").state_dict()
+    got = vqvae_template(cfg).state_dict()
+    assert [(k, tuple(v.shape)) for k, v in got.items()] == \
+        [(k, tuple(v.shape)) for k, v in want.items()]
+
+
+TAMING_RAW = {"image_size": 16,
+              "autoencoder": {"layout": "taming", "channels": 32, "num_res_blocks": 1,
+                              "channel_multipliers": [1, 2], "attn_resolutions": [8],
+                              "z_channels": 16},
+              "quantizer": {"type": "standard", "num_embeddings": 32, "embedding_dim": 8,
+                            "reinit_every_n_epochs": None, "params": Q_PARAMS["standard"]}}
+
+
+def test_taming_layout_state_dict_imports(tmp_path):
+    """A tiny taming-layout model's ``state_dict`` (``nin_shortcut``,
+    ``quant_conv``, ``mid.attn_1`` among its keys) through the import CLI:
+    the snapshot holds every tensor unchanged and loads strictly."""
+    cfg = parse_config(TAMING_RAW)
+    sd = VQVAE.from_config(cfg, device="cpu",
+                           generator=torch.Generator().manual_seed(4)).state_dict()
+    assert {"encoder.down.1.block.0.nin_shortcut.weight", "encoder.quant_conv.bias",
+            "decoder.mid.attn_1.q.weight"} <= set(sd)
+    torch.save(sd, tmp_path / "model.pt")
+    params_file = tmp_path / "taming.yaml"
+    params_file.write_text(yaml.safe_dump(TAMING_RAW))
+    path = import_torch_checkpoint.main(["--ckpt", str(tmp_path / "model.pt"),
+                                         "--params_file", str(params_file),
+                                         "--output", str(tmp_path / "out")])
+    got = torch.load(path, map_location="cpu")["model"]
+    assert list(got) == list(sd)
+    assert all(torch.equal(got[k], sd[k]) for k in sd)
+    VQVAE.from_config(cfg, device="cpu").load_state_dict(got, strict=True)

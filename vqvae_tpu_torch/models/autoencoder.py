@@ -34,21 +34,23 @@ compute ``dtype``, GroupNorm statistics in fp32. Parameters are drawn with
 torch's default conv init, U(+-1/sqrt(fan_in)) for kernels and biases, from
 an explicit ``torch.Generator``.
 
-Two layouts (``config.AutoencoderConf.layout``): ``Encoder`` / ``Decoder``
-are SerezD's (the JAX package's); ``TamingEncoder`` / ``TamingDecoder`` are
-taming-transformers' (``taming/modules/diffusionmodules/model.py``), with
-taming's own module names, conv biases everywhere, the biased GroupNorm
-variance, a padded stride-2 conv for downsampling, single-head attention
-(``AttnBlock``, span ``attn``) at the resolutions listed, a middle block in
-both halves and no output tanh; ``VQModel``'s ``quant_conv`` closes the
-encoder and its ``post_quant_conv`` opens the decoder, so each half meets
-the quantizer at the codebook's width.
+Two layouts (``config.AutoencoderConf.layout``), decided here alone:
+``build_autoencoder`` builds a config's two halves. ``Encoder`` /
+``Decoder`` are SerezD's (the JAX package's); ``TamingEncoder`` /
+``TamingDecoder`` are taming-transformers'
+(``taming/modules/diffusionmodules/model.py``), with taming's own module
+names, conv biases everywhere, the biased GroupNorm variance (the one
+``ResBlock`` serves both), a padded stride-2 conv for downsampling,
+single-head attention (``AttnBlock``, span ``attn``) at the resolutions
+listed, a middle block in both halves and no output tanh; ``VQModel``'s
+``quant_conv`` closes the encoder and its ``post_quant_conv`` opens the
+decoder, so each half meets the quantizer at the codebook's width.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -149,26 +151,33 @@ class _Checkpointed(nn.Module):
 
 
 class ResBlock(_Checkpointed):
-    """Pre-activation residual block: (GN -> SiLU -> 3x3 conv) x 2, bias-free
-    convs, 1x1 shortcut when channels change (reference autoencoder.py:42-77)."""
+    """Pre-activation residual block: (GN -> SiLU -> 3x3 conv) x 2, a 1x1
+    shortcut when channels change (reference autoencoder.py:42-77). SerezD's
+    by default: bias-free convs, the unbiased GroupNorm variance, the
+    shortcut named ``conv_shortcut``. ``bias``, ``unbiased`` and
+    ``shortcut_name`` (the attribute, and so the ``state_dict`` key) give
+    taming's ``ResnetBlock`` (``_taming_block``)."""
 
     def __init__(self, in_ch: int, out_ch: int, dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None, remat: bool = False):
+                 generator: Optional[torch.Generator] = None, remat: bool = False,
+                 bias: bool = False, unbiased: bool = True,
+                 shortcut_name: str = "conv_shortcut"):
         super().__init__()
         self.remat = remat
-        self.norm1 = GroupNorm(in_ch, dtype=dtype)
-        self.conv1 = Conv2d(in_ch, out_ch, 3, bias=False, dtype=dtype, generator=generator)
-        self.norm2 = GroupNorm(out_ch, dtype=dtype)
-        self.conv2 = Conv2d(out_ch, out_ch, 3, bias=False, dtype=dtype, generator=generator)
-        self.conv_shortcut = (Conv2d(in_ch, out_ch, 1, bias=False, dtype=dtype,
-                                     generator=generator)
-                              if in_ch != out_ch else None)
+        self.shortcut_name = shortcut_name
+        self.norm1 = GroupNorm(in_ch, dtype=dtype, unbiased=unbiased)
+        self.conv1 = Conv2d(in_ch, out_ch, 3, bias=bias, dtype=dtype, generator=generator)
+        self.norm2 = GroupNorm(out_ch, dtype=dtype, unbiased=unbiased)
+        self.conv2 = Conv2d(out_ch, out_ch, 3, bias=bias, dtype=dtype, generator=generator)
+        setattr(self, shortcut_name, Conv2d(in_ch, out_ch, 1, bias=bias, dtype=dtype,
+                                            generator=generator) if in_ch != out_ch else None)
 
     def _forward(self, x):
         residual = self.conv1(norm_act(self.norm1, x))
         residual = self.conv2(norm_act(self.norm2, residual))
-        if self.conv_shortcut is not None:
-            x = self.conv_shortcut(x)
+        shortcut = getattr(self, self.shortcut_name)
+        if shortcut is not None:
+            x = shortcut(x)
         return x + residual
 
 
@@ -261,29 +270,13 @@ class Decoder(nn.Module):
 # taming-transformers' layout (taming/modules/diffusionmodules/model.py)
 
 
-class TamingResBlock(_Checkpointed):
+def _taming_block(in_ch: int, out_ch: int, dtype: torch.dtype,
+                  generator: Optional[torch.Generator], remat: bool) -> ResBlock:
     """``ResnetBlock`` as the VQGAN builds it (no time embedding, dropout
-    0): (GN -> SiLU -> 3x3 conv with bias) x 2, a 1x1 ``nin_shortcut`` with
-    bias when channels change; the biased GroupNorm variance."""
-
-    def __init__(self, in_ch: int, out_ch: int, dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None, remat: bool = False):
-        super().__init__()
-        self.remat = remat
-        self.norm1 = GroupNorm(in_ch, dtype=dtype, unbiased=False)
-        self.conv1 = Conv2d(in_ch, out_ch, 3, bias=True, dtype=dtype, generator=generator)
-        self.norm2 = GroupNorm(out_ch, dtype=dtype, unbiased=False)
-        self.conv2 = Conv2d(out_ch, out_ch, 3, bias=True, dtype=dtype, generator=generator)
-        self.nin_shortcut = (Conv2d(in_ch, out_ch, 1, bias=True, dtype=dtype,
-                                    generator=generator)
-                             if in_ch != out_ch else None)
-
-    def _forward(self, x):
-        residual = self.conv1(norm_act(self.norm1, x))
-        residual = self.conv2(norm_act(self.norm2, residual))
-        if self.nin_shortcut is not None:
-            x = self.nin_shortcut(x)
-        return x + residual
+    0): 3x3 convs with bias, a 1x1 ``nin_shortcut`` with bias when channels
+    change, the biased GroupNorm variance."""
+    return ResBlock(in_ch, out_ch, dtype, generator, remat, bias=True, unbiased=False,
+                    shortcut_name="nin_shortcut")
 
 
 def _pointwise(conv: Conv2d, x: torch.Tensor) -> torch.Tensor:
@@ -341,9 +334,9 @@ class TamingMiddle(nn.Module):
     def __init__(self, channels: int, dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None, remat: bool = False):
         super().__init__()
-        self.block_1 = TamingResBlock(channels, channels, dtype, generator, remat)
+        self.block_1 = _taming_block(channels, channels, dtype, generator, remat)
         self.attn_1 = AttnBlock(channels, dtype, generator, remat)
-        self.block_2 = TamingResBlock(channels, channels, dtype, generator, remat)
+        self.block_2 = _taming_block(channels, channels, dtype, generator, remat)
 
     def forward(self, x):
         return self.block_2(self.attn_1(self.block_1(x)))
@@ -389,7 +382,7 @@ class TamingEncoder(nn.Module):
         for i, mult in enumerate(channel_multipliers):
             blocks, attn = [], []
             for _ in range(num_res_blocks):
-                blocks.append(TamingResBlock(ch, channels * mult, dtype, generator, remat))
+                blocks.append(_taming_block(ch, channels * mult, dtype, generator, remat))
                 ch = channels * mult
                 if res in attn_resolutions:
                     attn.append(AttnBlock(ch, dtype, generator, remat))
@@ -440,8 +433,8 @@ class TamingDecoder(nn.Module):
         for i in reversed(range(len(channel_multipliers))):
             blocks, attn = [], []
             for _ in range(num_res_blocks + 1):
-                blocks.append(TamingResBlock(ch, channels * channel_multipliers[i], dtype,
-                                             generator, remat))
+                blocks.append(_taming_block(ch, channels * channel_multipliers[i], dtype,
+                                           generator, remat))
                 ch = channels * channel_multipliers[i]
                 if res in attn_resolutions:
                     attn.append(AttnBlock(ch, dtype, generator, remat))
@@ -462,3 +455,21 @@ class TamingDecoder(nn.Module):
                 if hasattr(level, "upsample"):
                     x = level.upsample(x)
             return self.conv_out(norm_act(self.norm_out, x)).float()
+
+
+def build_autoencoder(ae, image_size: int, out_channels: int, embedding_dim: int,
+                      dtype: torch.dtype = torch.float32,
+                      generator: Optional[torch.Generator] = None,
+                      remat: bool = False) -> Tuple[nn.Module, nn.Module]:
+    """(encoder, decoder) for a config's ``autoencoder`` block ``ae``, in its
+    layout: the encoder emits ``out_channels``, the decoder takes
+    ``embedding_dim``; ``image_size`` is the side the taming layout counts
+    its resolutions from. The JAX package's config, which tests hand in too,
+    has no ``layout``: SerezD's."""
+    shape = (ae.channels, ae.num_res_blocks, tuple(ae.channel_multipliers))
+    if getattr(ae, "layout", "serezd") == "taming":
+        shape += (tuple(ae.attn_resolutions), image_size, ae.z_channels)
+        return (TamingEncoder(*shape, out_channels, dtype, generator, remat),
+                TamingDecoder(*shape, embedding_dim, dtype, generator, remat))
+    return (Encoder(*shape, out_channels, dtype, generator, remat),
+            Decoder(*shape, embedding_dim, dtype, generator, remat))

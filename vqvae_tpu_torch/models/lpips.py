@@ -37,6 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.autograd.function import once_differentiable
 
+from vqvae_tpu_torch.models.preprocess import to_nchw
 from vqvae_tpu_torch.utils.introspect import named_scope
 
 _SHIFT = (-0.030, -0.088, -0.188)
@@ -228,7 +229,7 @@ class LPIPS(nn.Module):
     def _z_score(self, im: torch.Tensor) -> torch.Tensor:
         shift = torch.tensor(_SHIFT, device=im.device)
         scale = torch.tensor(_SCALE, device=im.device)
-        return ((im.float() - shift) / scale).permute(0, 3, 1, 2).contiguous()
+        return to_nchw((im.float() - shift) / scale)
 
     def forward(self, x: torch.Tensor, y: torch.Tensor, reduce: bool = True) -> torch.Tensor:
         """Under the span ``lpips`` (the forward; the backward runs in the

@@ -1,5 +1,6 @@
 """Image preprocessing and the training augmentations (counterpart of
-``vqvae_tpu/models/preprocess.py:28-87``). Images are NHWC.
+``vqvae_tpu/models/preprocess.py:28-87``). Images are NHWC; ``to_nchw`` /
+``to_nhwc`` are the port's one hop to the modules' NCHW and back.
 
 The augmentation is the reference's RandomResizedCrop(scale 0.7-1, ratio 1)
 + RandomHorizontalFlip(0.5), drawn from an explicit ``torch.Generator``. The
@@ -16,6 +17,16 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+
+def to_nchw(x: torch.Tensor) -> torch.Tensor:
+    """NHWC -> contiguous NCHW: the hop from the API's format to the modules'."""
+    return x.permute(0, 3, 1, 2).contiguous()
+
+
+def to_nhwc(x: torch.Tensor) -> torch.Tensor:
+    """NCHW -> contiguous NHWC: the hop back."""
+    return x.permute(0, 2, 3, 1).contiguous()
 
 
 def normalize(images: torch.Tensor) -> torch.Tensor:

@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vqvae_tpu_torch.models.preprocess import to_nchw, to_nhwc
 from vqvae_tpu_torch.ops.vq import nearest_codes, nearest_codes_stats
 from vqvae_tpu_torch.parallel.dist import all_reduce_sum_
 from vqvae_tpu_torch.utils.precision import full_fp32
@@ -31,7 +32,7 @@ def codebook_init(num_embeddings: int, embedding_dim: int,
 
 def _flatten(z: torch.Tensor) -> Tuple[torch.Tensor, Tuple[int, int, int, int]]:
     b, d, h, w = z.shape
-    return z.permute(0, 2, 3, 1).reshape(b * h * w, d), (b, h, w, d)
+    return to_nhwc(z).reshape(b * h * w, d), (b, h, w, d)
 
 
 def _row_weights(mask: Optional[torch.Tensor], hw: int) -> Optional[torch.Tensor]:
@@ -164,7 +165,7 @@ class VectorQuantizer(nn.Module):
         q_loss = _wmean((quantized - flat_x.detach()) ** 2, rw)
 
         quantized = flat_x + (quantized - flat_x).detach()
-        quantized = quantized.reshape(b, h, w, d).permute(0, 3, 1, 2).contiguous()
+        quantized = to_nchw(quantized.reshape(b, h, w, d))
         return quantized, codes.reshape(b, h * w), q_loss + e_loss
 
     def vec_to_codes(self, z: torch.Tensor) -> torch.Tensor:
@@ -233,7 +234,7 @@ class EMAVectorQuantizer(nn.Module):
         e_loss = self.commitment_cost * _wmean((quantized - flat_x) ** 2,
                                                _row_weights(mask, h * w))
         quantized = flat_x + (quantized - flat_x).detach()
-        quantized = quantized.reshape(b, h, w, d).permute(0, 3, 1, 2).contiguous()
+        quantized = to_nchw(quantized.reshape(b, h, w, d))
         return quantized, codes.reshape(b, h * w), e_loss
 
     def vec_to_codes(self, z: torch.Tensor) -> torch.Tensor:
@@ -315,7 +316,7 @@ class GumbelVectorQuantizer(nn.Module):
         kl_loss = kl_cost * _wmean(kl_per_pos, _row_weights(mask, h * w))
 
         codes = soft_one_hot.detach().argmax(-1).int().reshape(b, h * w)
-        quantized = quantized.reshape(b, h, w, -1).permute(0, 3, 1, 2).contiguous()
+        quantized = to_nchw(quantized.reshape(b, h, w, -1))
         return quantized, codes, kl_loss
 
     def vec_to_codes(self, z: torch.Tensor, deterministic: bool = False,
@@ -373,7 +374,7 @@ class EntropyVectorQuantizer(VectorQuantizer):
                                                  self.ent_loss_type, row_weights=rw)
 
         quantized = flat_x + (quantized - flat_x).detach()
-        quantized = quantized.reshape(b, h, w, d).permute(0, 3, 1, 2).contiguous()
+        quantized = to_nchw(quantized.reshape(b, h, w, d))
         return quantized, codes.int().reshape(b, h * w), e_loss + q_loss + ent
 
 

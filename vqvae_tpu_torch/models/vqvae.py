@@ -17,8 +17,8 @@ lookup); ``encoder`` and ``decoder`` are the modules' own.
 in training (``models/autoencoder.py``); it changes no value and no key.
 
 The autoencoder's layout (``config.AutoencoderConf.layout``) is SerezD's
-or taming-transformers' (``models/autoencoder.py``); the quantizer and the
-methods below are the same for both.
+or taming-transformers', decided in ``models/autoencoder.py`` alone; the
+quantizer and the methods below are the same for both.
 
 For the gumbel quantizer the encoder emits ``num_embeddings`` channels
 (reference model.py:130); ``temp`` and ``kl_cost`` are call-time arguments
@@ -33,48 +33,29 @@ import torch
 from torch import nn
 
 from vqvae_tpu_torch.config import Config
-from vqvae_tpu_torch.models.autoencoder import Decoder, Encoder, TamingDecoder, TamingEncoder
-from vqvae_tpu_torch.models.preprocess import denormalize, preprocess_batch
+from vqvae_tpu_torch.models.autoencoder import build_autoencoder
+from vqvae_tpu_torch.models.preprocess import denormalize, preprocess_batch, to_nchw, to_nhwc
 from vqvae_tpu_torch.models.quantizers import codes_to_vec, make_quantizer
 from vqvae_tpu_torch.utils.introspect import named_scope
 
 
-def _nchw(x: torch.Tensor) -> torch.Tensor:
-    return x.permute(0, 3, 1, 2).contiguous()
-
-
-def _nhwc(x: torch.Tensor) -> torch.Tensor:
-    return x.permute(0, 2, 3, 1).contiguous()
-
-
 class VQVAE(nn.Module):
-    """Encoder + quantizer + decoder (reference model.py:25-161)."""
+    """Encoder + quantizer + decoder (reference model.py:25-161), built from
+    a parsed config (the port's, or the JAX package's that tests hand in):
+    the quantizer from ``cfg.quantizer``, the two halves in the config's
+    layout (``models/autoencoder.build_autoencoder``). Parameters are drawn
+    from ``generator`` in that order."""
 
-    def __init__(self, channels: int, num_res_blocks: int, channel_multipliers,
-                 num_embeddings: int, embedding_dim: int, quantizer_type: str,
-                 quantizer_params: dict, dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None, remat: bool = False,
-                 layout: str = "serezd", attn_resolutions=(), z_channels: Optional[int] = None,
-                 resolution: Optional[int] = None):
+    def __init__(self, cfg: Config, dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None, remat: bool = False):
         super().__init__()
-        self.quantizer_type = quantizer_type
-        self.quantizer = make_quantizer(quantizer_type, num_embeddings, embedding_dim,
-                                        quantizer_params, generator)
-        encoder_out = num_embeddings if quantizer_type == "gumbel" else embedding_dim
-        if layout == "taming":
-            # ``resolution``: the image side, from which the levels'
-            # resolutions (and so where attention runs) are counted
-            shape = (channels, num_res_blocks, channel_multipliers, tuple(attn_resolutions),
-                     resolution, z_channels)
-            self.encoder = TamingEncoder(*shape, encoder_out, dtype, generator, remat)
-            self.decoder = TamingDecoder(*shape, embedding_dim, dtype, generator, remat)
-        elif layout == "serezd":
-            self.encoder = Encoder(channels, num_res_blocks, channel_multipliers,
-                                   encoder_out, dtype, generator, remat)
-            self.decoder = Decoder(channels, num_res_blocks, channel_multipliers,
-                                   embedding_dim, dtype, generator, remat)
-        else:
-            raise ValueError(f"unknown autoencoder layout: {layout!r}")
+        q = cfg.quantizer
+        self.quantizer_type = q.type
+        self.quantizer = make_quantizer(q.type, q.num_embeddings, q.embedding_dim,
+                                        dict(q.params), generator)
+        self.encoder, self.decoder = build_autoencoder(
+            cfg.autoencoder, cfg.image_size, cfg.encoder_out_channels, q.embedding_dim,
+            dtype, generator, remat)
 
     @classmethod
     def from_config(cls, cfg: Config, dtype: torch.dtype = torch.float32,
@@ -84,25 +65,7 @@ class VQVAE(nn.Module):
         ``generator`` (a seed gives the same weights on every device), then
         moved to ``device``, the card unless the caller asks for the CPU.
         Returns the model in eval mode."""
-        model = cls(
-            channels=cfg.autoencoder.channels,
-            num_res_blocks=cfg.autoencoder.num_res_blocks,
-            channel_multipliers=tuple(cfg.autoencoder.channel_multipliers),
-            num_embeddings=cfg.quantizer.num_embeddings,
-            embedding_dim=cfg.quantizer.embedding_dim,
-            quantizer_type=cfg.quantizer.type,
-            quantizer_params=dict(cfg.quantizer.params),
-            dtype=dtype,
-            generator=generator,
-            remat=remat,
-            # the JAX package's config, which tests hand in too, has
-            # SerezD's layout and no ``layout``
-            layout=getattr(cfg.autoencoder, "layout", "serezd"),
-            attn_resolutions=getattr(cfg.autoencoder, "attn_resolutions", ()),
-            z_channels=getattr(cfg.autoencoder, "z_channels", None),
-            resolution=cfg.image_size,
-        )
-        return model.to(device).eval()
+        return cls(cfg, dtype, generator, remat).to(device).eval()
 
     def _quantize(self, z, train, mask=None, temp=None, kl_cost=None, generator=None):
         with named_scope("quantizer", images=z.shape[0]):
@@ -120,9 +83,9 @@ class VQVAE(nn.Module):
         buffers (never keyed on ``nn.Module.training``); ``mask``: optional
         (B,) bool, rows with False are left out of the quantizer loss;
         ``temp``, ``kl_cost``, ``generator``: the gumbel quantizer's."""
-        z = self.encoder(_nchw(x))
+        z = self.encoder(to_nchw(x))
         quantized, codes, q_loss = self._quantize(z, train, mask, temp, kl_cost, generator)
-        return _nhwc(self.decoder(quantized)), q_loss, codes
+        return to_nhwc(self.decoder(quantized)), q_loss, codes
 
     # tokenizer API (reference model.py:458-489)
 
@@ -132,7 +95,7 @@ class VQVAE(nn.Module):
         """[0,1] NHWC images -> (B, S) int32 codebook indices. Gumbel: noisy
         argmax of the raw encoder channels unless ``deterministic``."""
         with named_scope("api.get_tokens", images=images.shape[0]):
-            z = self.encoder(_nchw(preprocess_batch(images)))
+            z = self.encoder(to_nchw(preprocess_batch(images)))
             with named_scope("quantizer", images=z.shape[0]):
                 if self.quantizer_type == "gumbel":
                     return self.quantizer.vec_to_codes(z, deterministic, generator)
@@ -141,7 +104,7 @@ class VQVAE(nn.Module):
     @torch.inference_mode()
     def quantize(self, images: torch.Tensor) -> torch.Tensor:
         """[0,1] NHWC images -> (B, S, D) quantized latents."""
-        z = self.encoder(_nchw(preprocess_batch(images)))
+        z = self.encoder(to_nchw(preprocess_batch(images)))
         quantized, _, _ = self._quantize(z, False)
         b, d = quantized.shape[:2]
         return quantized.reshape(b, d, -1).transpose(1, 2)
@@ -161,12 +124,12 @@ class VQVAE(nn.Module):
             b, s, d = quantized.shape
             hw = int(round(s ** 0.5))
             quantized = quantized.reshape(b, hw, hw, d)
-            return denormalize(_nhwc(self.decoder(_nchw(quantized))))
+            return denormalize(to_nhwc(self.decoder(to_nchw(quantized))))
 
     def encode(self, x: torch.Tensor) -> torch.Tensor:
         """Normalized NHWC images -> raw NHWC encoder latents (fp32)."""
-        return _nhwc(self.encoder(_nchw(x)))
+        return to_nhwc(self.encoder(to_nchw(x)))
 
     def decode(self, quantized: torch.Tensor) -> torch.Tensor:
         """NHWC quantized latents -> normalized NHWC reconstructions."""
-        return _nhwc(self.decoder(_nchw(quantized)))
+        return to_nhwc(self.decoder(to_nchw(quantized)))

@@ -44,7 +44,7 @@ import torch.distributed as dist
 from torch import nn
 
 from vqvae_tpu_torch.models.autoencoder import GroupNorm
-from vqvae_tpu_torch.models.preprocess import denormalize
+from vqvae_tpu_torch.models.preprocess import denormalize, to_nchw, to_nhwc
 from vqvae_tpu_torch.models.quantizers import codes_to_vec
 
 METHODS = ("get_tokens", "quantize", "reconstruct", "reconstruct_from_tokens")
@@ -174,9 +174,8 @@ def make_spatial_apply(model, method: str = "get_tokens", group=None, **method_k
             with sharded(model, shards):
                 quantized = codes_to_vec(model.quantizer.codebook.weight, x)
                 b, _, d = quantized.shape
-                quantized = quantized.reshape(b, hw // n, hw, d).permute(0, 3, 1, 2)
-                out = model.decoder(quantized.contiguous())
-            return denormalize(out.permute(0, 2, 3, 1).contiguous())
+                out = model.decoder(to_nchw(quantized.reshape(b, hw // n, hw, d)))
+            return denormalize(to_nhwc(out))
         h = x.shape[1] * n
         if h % h_align != 0:
             raise ValueError(f"image height {h} must be divisible by n_shards * 2**levels = "

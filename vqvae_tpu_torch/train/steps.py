@@ -67,7 +67,7 @@ from vqvae_tpu_torch.config import AdversarialConf
 from vqvae_tpu_torch.losses.losses import (discriminator_loss_half,
                                            discriminator_loss_per_sample, generator_loss,
                                            generator_loss_per_sample, l1_loss, l2_loss)
-from vqvae_tpu_torch.models.preprocess import denormalize, preprocess_batch
+from vqvae_tpu_torch.models.preprocess import denormalize, preprocess_batch, to_nchw
 from vqvae_tpu_torch.models.quantizers import count_code_usage
 from vqvae_tpu_torch.ops.conv2d_resample import no_weight_gradients
 from vqvae_tpu_torch.parallel.dist import all_reduce_mean_, all_reduce_sum_
@@ -86,10 +86,6 @@ class LossStack:
     perc_weight: float
     lpips: Optional[Callable]
     adv: Optional[AdversarialConf]
-
-
-def _nchw(x: torch.Tensor) -> torch.Tensor:
-    return x.permute(0, 3, 1, 2).contiguous()
 
 
 def _per_sample_mean(x: torch.Tensor) -> torch.Tensor:
@@ -131,7 +127,7 @@ def _micro_step(state: TrainState, raw_images: torch.Tensor, augment: bool, imag
         adv = losses.adv
         d_params = list(state.disc.parameters())
         with named_scope("gan.d_real"):
-            real = _nchw(images).detach().requires_grad_(r1)
+            real = to_nchw(images).detach().requires_grad_(r1)
             logits_real = state.disc(real, fused=not r1)
             d_real = discriminator_loss_half(logits_real, True, adv.loss_type).mean()
         if r1:
@@ -157,7 +153,7 @@ def _micro_step(state: TrainState, raw_images: torch.Tensor, augment: bool, imag
         nll = l1 * losses.l1_weight + l2 * losses.l2_weight + perc * losses.perc_weight
         if gan:
             with named_scope("gan.d_fake"):
-                logits_fake = state.disc(_nchw(recon))   # shared by the G and D losses
+                logits_fake = state.disc(to_nchw(recon))   # shared by the G and D losses
                 g_loss = generator_loss(logits_fake, adv.loss_type)
                 if adv.use_adaptive:
                     with no_weight_gradients():
@@ -252,9 +248,9 @@ def eval_step(state: TrainState, raw_images: torch.Tensor, mask: torch.Tensor,
         nll_i = l1_i * losses.l1_weight + l2_i * losses.l2_weight + p_i * losses.perc_weight
         if gan:
             adv = losses.adv
-            logits_fake = state.disc(_nchw(recon), fused=False)
+            logits_fake = state.disc(to_nchw(recon), fused=False)
             g_i = generator_loss_per_sample(logits_fake, adv.loss_type)
-            logits_real = state.disc(_nchw(images), fused=False)
+            logits_real = state.disc(to_nchw(images), fused=False)
             d_i = discriminator_loss_per_sample(logits_real, logits_fake, adv.loss_type)
             loss_i = nll_i + g_i * adv.g_weight + q_loss
         else:

@@ -55,13 +55,7 @@ def vqvae_template(cfg: Config) -> nn.Module:
     """The port's VQVAE for ``cfg`` on the meta device: its keys and shapes."""
     from vqvae_tpu_torch.models.vqvae import VQVAE
     with torch.device("meta"):
-        return VQVAE(channels=cfg.autoencoder.channels,
-                     num_res_blocks=cfg.autoencoder.num_res_blocks,
-                     channel_multipliers=tuple(cfg.autoencoder.channel_multipliers),
-                     num_embeddings=cfg.quantizer.num_embeddings,
-                     embedding_dim=cfg.quantizer.embedding_dim,
-                     quantizer_type=cfg.quantizer.type,
-                     quantizer_params=dict(cfg.quantizer.params))
+        return VQVAE(cfg)
 
 
 def convert_vqvae_state_dict(sd: Tensors, cfg: Config) -> Dict[str, torch.Tensor]:
