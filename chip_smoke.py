@@ -20,11 +20,13 @@ exit and no result line:
    50 times their spread, by ``kernel_error`` of ``tests/gn_silu_check.py``
    (the GroupNorm within one bf16 ulp, or 4e-6 in fp32, of the affine's
    scale; with the SiLU, ``F.silu`` of the kernel's GroupNorm bit for bit),
-   a second launch bit-identical; and its times at
-   ``GN_TIMED`` (taming's largest decoder call, the 16^2 calls of both
-   decoders, the export encoder's largest) beside its byte bound (one read
-   and one write), the plain version's and ``F.group_norm`` + ``F.silu``
-   (``library_ms``), with the form ``plan`` picks;
+   a second launch bit-identical, each also channels-last (the NHWC form:
+   ``gn_silu.nhwc_calls`` counts it); and its times at ``GN_TIMED``
+   (taming's largest decoder call, contiguous and channels-last, the 16^2
+   calls of both decoders, the export encoder's largest) beside its byte
+   bound (one read and one write), the plain version's and
+   ``F.group_norm`` + ``F.silu`` (``library_ms``), with the form ``plan`` or
+   ``plan_nhwc`` picks;
 3. B1 vs plain: the nearest-code kernel against ``nearest_codes_reference``
    at the tokenizer's shapes and at ragged ones (an odd D, a latent buffer
    that is not 16-byte aligned); a duplicated codebook row whose copies fall
@@ -35,7 +37,12 @@ exit and no result line:
 4. tokenizer slice: the tokenizer API (``get_tokens``, ``reconstruct``,
    ``reconstruct_from_tokens``) at full width on
    ``example_confs/standard_vqvae.yaml`` with seeded random weights, at
-   batch 1, 8 and 32, counting kernel launches;
+   batch 1, 8 and 32, counting kernel launches (fp32: no NHWC call); then
+   bf16 decoding: ``reconstruct_from_tokens`` of ``gumbel_vqgan.yaml`` and
+   ``taming_vqgan_f16.yaml`` at batch 32 under a profiler capture, which
+   must hold no cuDNN ``nchwToNhwc`` / ``nhwcToNchw`` kernel, with
+   ``gn_silu.nhwc_calls`` equal to the decoder's GroupNorm calls and the
+   images contiguous NHWC;
 5. B2 vs plain: the nearest-code-statistics kernel against
    ``nearest_codes_stats_reference`` at the EMA training shape and at
    ragged ones: codes by B1's near-tie rule, counts exact, sums within
@@ -356,13 +363,21 @@ BENCH_FP32_STEPS = 4        # serve (e): calls per window of the fp32 bench_infe
 GRID_SHARE = 1e-10          # serve (f): float64 card vs CPU, share of the largest entry
 # GroupNorm -> SiLU (phase 2): the timed calls (B, C, H, W), dtype, ddof; the
 # checked ones also with the input's mean and spread
-GN_TIMED = [((32, 128, 256, 256), torch.bfloat16, 0), ((32, 512, 16, 16), torch.bfloat16, 0),
-            ((256, 128, 256, 256), torch.float32, 1)]
-GN_CHECKED = [case + (1.5, 2.0) for case in GN_TIMED] + [
-    ((2, 64, 7, 9), torch.bfloat16, 1, 1.5, 2.0),
-    ((1, 128, 2048, 2048), torch.float32, 1, 1.5, 2.0),
-    ((2, 128, 256, 256), torch.bfloat16, 0, 50.0, 1.0),
-    ((2, 128, 256, 256), torch.float32, 1, -50.0, 1.0)]
+# channels-last (the NHWC form), bf16 decoding's layout
+GN_TIMED = [((32, 128, 256, 256), torch.bfloat16, 0, False),
+            ((32, 128, 256, 256), torch.bfloat16, 0, True),
+            ((32, 512, 16, 16), torch.bfloat16, 0, False), ((32, 512, 16, 16), torch.bfloat16, 0, True),
+            ((256, 128, 256, 256), torch.float32, 1, False)]
+GN_CHECKED = [case[:3] + (1.5, 2.0, case[3]) for case in GN_TIMED] + [
+    ((2, 64, 7, 9), torch.bfloat16, 1, 1.5, 2.0, False),
+    ((2, 64, 7, 9), torch.bfloat16, 1, 1.5, 2.0, True),
+    ((1, 128, 2048, 2048), torch.float32, 1, 1.5, 2.0, False),
+    ((2, 128, 512, 512), torch.bfloat16, 1, 1.5, 2.0, True),
+    ((2, 128, 256, 256), torch.bfloat16, 0, 50.0, 1.0, False),
+    ((2, 128, 256, 256), torch.bfloat16, 0, 50.0, 1.0, True),
+    ((2, 128, 256, 256), torch.float32, 1, -50.0, 1.0, False)]
+DECODE_CONFIGS = ("gumbel_vqgan", "taming_vqgan_f16")   # bf16 decoding: channels-last
+DECODE_BATCH = 32
 # published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): fp32 on the
 # CUDA cores, TF32 on the tensor cores (dense), and device memory
 FP32_FLOPS = 67e12
@@ -469,42 +484,55 @@ def phase_build() -> None:
             print(f"ptxas {lib}.cu: {line}")
 
 
-def _gn_case(shape, dtype, gen, mean=1.5, std=2.0):
+def _gn_case(shape, dtype, gen, mean=1.5, std=2.0, channels_last=False):
     x = (mean + std * torch.randn(shape, device=gen.device, generator=gen)).to(dtype)
+    if channels_last:
+        x = x.contiguous(memory_format=torch.channels_last)
     w = 1 + 0.5 * torch.randn(1, shape[1], 1, 1, device=gen.device, generator=gen)
     b = 0.5 * torch.randn(1, shape[1], 1, 1, device=gen.device, generator=gen)
     return x, w, b
 
 
+def _gn_form(shape, x, sms, channels_last: bool):
+    """The form the wrapper launches for ``x``."""
+    cg, hw = shape[1] // 32, shape[2] * shape[3]
+    if channels_last:
+        return gn_silu_cuda.plan_nhwc(shape[0], 32, cg, hw, x.element_size(), True, sms)
+    return gn_silu_cuda.plan(shape[0] * 32, cg * hw, hw, x.element_size(), True, sms)
+
+
 def phase_gn_silu(device, card: str) -> tuple:
     """The GroupNorm -> SiLU kernel against its plain version at
     ``GN_CHECKED``, then its times at ``GN_TIMED``; -> (worst share of the
-    limit, {shape: times} of the timed calls)."""
+    limit, {(shape, channels-last): times} of the timed calls)."""
     gen = torch.Generator(device=device).manual_seed(SEED + 11)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     worst = 0.0
-    for shape, dtype, ddof, mean, std in GN_CHECKED:
-        name = str(dtype).removeprefix("torch.")
-        x, w, b = _gn_case(shape, dtype, gen, mean, std)
-        n = (shape[1] // 32) * shape[2] * shape[3]
-        form = gn_silu_cuda.plan(shape[0] * 32, n, shape[2] * shape[3], x.element_size(), True,
-                                 sms)
+    for shape, dtype, ddof, mean, std, nhwc in GN_CHECKED:
+        name = str(dtype).removeprefix("torch.") + (" channels-last" if nhwc else "")
+        x, w, b = _gn_case(shape, dtype, gen, mean, std, nhwc)
+        form = _gn_form(shape, x, sms, nhwc)
+        calls = gn_silu.gn_silu.nhwc_calls
         norm = gn_silu_cuda.gn_silu_cuda(x, w, b, 32, 1e-6, ddof, False)
         act = gn_silu_cuda.gn_silu_cuda(x, w, b, 32, 1e-6, ddof, True)
+        calls = gn_silu.gn_silu.nhwc_calls - calls
         share = kernel_error(x, w, b, 32, 1e-6, ddof, norm, act)
         same = torch.equal(act, gn_silu_cuda.gn_silu_cuda(x, w, b, 32, 1e-6, ddof, True))
+        kept = act.is_contiguous(memory_format=torch.channels_last if nhwc
+                                 else torch.contiguous_format)
         print(f"gn_silu vs plain {shape} {name} ddof {ddof}, input mean {mean} std {std} "
               f"({form}): worst share of the limit {share:.3f} (the SiLU's output is F.silu of "
               f"the kernel's GroupNorm bit for bit where finite); second launch "
-              f"{'bit-identical' if same else 'DIFFERENT'}")
-        check(share <= 1 and same, f"gn_silu vs plain {shape} {name}")
+              f"{'bit-identical' if same else 'DIFFERENT'}; NHWC calls {calls}")
+        check(share <= 1 and same and kept and calls == (2 if nhwc else 0),
+              f"gn_silu vs plain {shape} {name}")
         worst = max(worst, share)
         del x, norm, act
         torch.cuda.empty_cache()
     rows = {}
-    for shape, dtype, ddof in GN_TIMED:
-        name = str(dtype).removeprefix("torch.")
-        x, w, b = _gn_case(shape, dtype, gen)
+    for shape, dtype, ddof, nhwc in GN_TIMED:
+        name = str(dtype).removeprefix("torch.") + (" channels-last" if nhwc else "")
+        x, w, b = _gn_case(shape, dtype, gen, channels_last=nhwc)
         wl, bl = w.flatten().to(dtype), b.flatten().to(dtype)
 
         def kernel():
@@ -517,9 +545,10 @@ def phase_gn_silu(device, card: str) -> tuple:
                         torch.nn.functional.group_norm(x, 32, wl, bl, 1e-6))}, reps=reps)
         b_ms, b_by = bound(0, 2 * x.numel() * x.element_size())
         dev = sum(device_ms(kernel, "gn_").values()) or None
-        rows[shape] = ({k: v[0] for k, v in t.items()}
-                       | {"bound": b_ms, "bound_by": b_by, "device": dev})
-        print(f"time [{card}]: gn_silu {shape} {name} kernel {t['kernel'][0]:.4f} ms (windows "
+        rows[(shape, nhwc)] = ({k: v[0] for k, v in t.items()}
+                               | {"bound": b_ms, "bound_by": b_by, "device": dev})
+        print(f"time [{card}]: gn_silu {shape} {name} ({_gn_form(shape, x, sms, nhwc)}) kernel "
+              f"{t['kernel'][0]:.4f} ms (windows "
               f"{t['kernel'][1][0]:.4f}, {t['kernel'][1][1]:.4f}; device {_ms(dev)}), plain "
               f"{t['plain'][0]:.4f} ms, F.group_norm + F.silu {t['library'][0]:.4f} ms; bound "
               f"{b_ms:.4f} ms (bytes: one read and one write; the kernel reaches "
@@ -633,6 +662,7 @@ def phase_slice(cfg, device):
     # get_tokens an encoder, reconstruct both, reconstruct_from_tokens a decoder
     check((enc, dec) == (21, 21) and gn == len(BATCHES) * 2 * (enc + dec),
           f"the tokenizer path launched gn_silu {len(BATCHES) * 2 * (enc + dec)} times")
+    check(gn_silu.gn_silu.nhwc_calls == 0, "the fp32 tokenizer path took no NHWC form")
 
     n_codes = cfg.quantizer.num_embeddings
     seq = cfg.latent_size ** 2
@@ -659,6 +689,46 @@ def phase_slice(cfg, device):
               f"(atol {RECON_ATOL})")
         check(err <= RECON_ATOL, f"reconstruct_from_tokens(get_tokens(x)) vs reconstruct(x) b={b}")
     return model, launches, gn, max_gap
+
+
+def phase_decode(device, card: str) -> int:
+    """bf16 ``reconstruct_from_tokens`` at ``DECODE_BATCH`` for each of
+    ``DECODE_CONFIGS``: under a profiler capture no cuDNN layout transpose,
+    every GroupNorm call in the NHWC form, contiguous NHWC images; its time.
+    -> the NHWC calls."""
+    calls = 0
+    for name in DECODE_CONFIGS:
+        path = ROOT / "example_confs" / f"{name}.yaml"
+        model = VQVAE.from_config(load_config(str(path)), dtype=torch.bfloat16, device=device,
+                                  generator=torch.Generator().manual_seed(SEED))
+        norms = sum(isinstance(m, GroupNorm) for m in model.decoder.modules())
+        gen = torch.Generator(device=device).manual_seed(SEED + 3)
+        side = model.quantizer.codebook.weight.shape[0]
+        tokens = torch.randint(0, side, (DECODE_BATCH, 256), device=device, generator=gen)
+        model.reconstruct_from_tokens(tokens)   # cuDNN's set-up outside the capture
+        torch.cuda.synchronize()
+        _reset_counts()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            images = model.reconstruct_from_tokens(tokens)
+            torch.cuda.synchronize()
+        kernels = {e.key for e in prof.key_averages()}
+        transposes = sorted(k for k in kernels if "nchwToNhwc" in k or "nhwcToNchw" in k)
+        nhwc, launches = gn_silu.gn_silu.nhwc_calls, gn_silu.gn_silu.launches
+        ms = cuda_ms(lambda: model.reconstruct_from_tokens(tokens), reps=5)
+        print(f"decode {name} bf16 batch {DECODE_BATCH}: {len(kernels)} kernels, layout "
+              f"transposes {transposes or 'none'}; gn_silu NHWC calls {nhwc} of {norms} GroupNorm "
+              f"calls, launches {launches}; images {tuple(images.shape)} "
+              f"contiguous {images.is_contiguous()}")
+        print(f"time [{card}]: decode {name} bf16 batch {DECODE_BATCH}: {ms:.2f} ms, "
+              f"{DECODE_BATCH * 1000 / ms:.1f} images/s")
+        check(not transposes, f"decode {name}: no NCHW <-> NHWC transpose")
+        check(nhwc == norms, f"decode {name}: every GroupNorm call in the NHWC form")
+        check(images.shape == (DECODE_BATCH, 256, 256, 3) and images.is_contiguous(),
+              f"decode {name}: contiguous NHWC images")
+        calls += nhwc
+        del model, images
+        torch.cuda.empty_cache()
+    return calls
 
 
 def _stats_agree(x, cb, got, what: str) -> float:
@@ -1088,7 +1158,7 @@ def _dbwd_counts():
 def _reset_counts():
     nearest_codes.launches = nearest_codes_stats.launches = 0
     fused_dbwd.blur_t_gate.launches = fused_dbwd.skip_fanout_bwd.launches = 0
-    gn_silu.gn_silu.launches = 0
+    gn_silu.gn_silu.launches = gn_silu.gn_silu.nhwc_calls = 0
 
 
 def _norm_calls(config) -> tuple:
@@ -3439,6 +3509,7 @@ def main() -> None:
     kernel_gap = phase_kernel(device)
     cfg = load_config(str(CONFIG))
     model, b1_tokenizer, gn_slice, slice_gap = phase_slice(cfg, device)
+    gn_decode = phase_decode(device, card)
     stats_err = phase_stats_kernel(device)
     train_cfg = load_config(str(TRAIN_CONFIG))
     b1_train, b2_train = phase_train(train_cfg, device, card)
@@ -3557,10 +3628,13 @@ def main() -> None:
         _record("gn_silu", "vqvae_tpu_torch/csrc/gn_silu.cu",
                 "none (the JAX package's GNSiLU, vqvae_tpu/models/autoencoder.py:172, is XLA)",
                 gn_slice + sum(gn_evals.values()) + gn_serve + tools["gn_silu"], gn_worst,
-                GN_TIMED[0][0], gn_times[GN_TIMED[0][0]])
-        | {"dtype": "bfloat16", "device_ms": gn_times[GN_TIMED[0][0]]["device"],
+                GN_TIMED[0][0], gn_times[(GN_TIMED[0][0], False)])
+        | {"dtype": "bfloat16", "device_ms": gn_times[(GN_TIMED[0][0], False)]["device"],
            "slice_launches": gn_slice, "eval_launches": gn_evals, "serve_launches": gn_serve,
-           "tools_launches": tools["gn_silu"], "train_launches": 0},
+           "tools_launches": tools["gn_silu"], "train_launches": 0,
+           # the NHWC form: bf16 decoding's calls and its time at the same shape
+           "decode_nhwc_calls": gn_decode,
+           "nhwc": {k: gn_times[(GN_TIMED[1][0], True)][k] for k in ("kernel", "bound", "device")}},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

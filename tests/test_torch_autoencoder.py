@@ -153,3 +153,139 @@ def test_bf16_compute_keeps_fp32_params_and_stats():
         assert h.dtype == torch.bfloat16
         assert enc.blocks[0].norm1(h).dtype == torch.bfloat16
     assert y.dtype == torch.float32 and torch.isfinite(y).all()
+
+
+# ---------------------------------------------------------------- the layout rule
+#
+# Channels-last activations (``tae.layout``): a half in bf16 whose GroupNorm
+# takes the kernel (autograd not recording, no sharded call) keeps them from
+# its entry to its last conv; every other call stays contiguous NCHW.
+
+LAYOUTS = ("serezd", "taming")
+
+
+def _tiny_model(layout: str, dtype=torch.bfloat16):
+    import json
+    from pathlib import Path
+
+    from benchmark.reference import taming
+    from vqvae_tpu_torch.config import parse_config
+    from vqvae_tpu_torch.models.vqvae import VQVAE
+    if layout == "taming":
+        path = Path(__file__).resolve().parent.parent / "benchmark/configs/taming_vqgan_f16.json"
+        raw = taming.tiny(json.loads(path.read_text()))
+    else:
+        raw = {"image_size": 16,
+               "autoencoder": {"channels": 32, "num_res_blocks": 1, "channel_multipliers": [1, 2]},
+               "quantizer": {"type": "standard", "num_embeddings": 16, "embedding_dim": 8,
+                             "params": {"commitment_cost": 0.25},
+                             "reinit_every_n_epochs": None}}
+    cfg = parse_config({k: raw[k] for k in ("image_size", "autoencoder", "quantizer")})
+    return VQVAE.from_config(cfg, dtype=dtype, device="cpu",
+                             generator=torch.Generator().manual_seed(0))
+
+
+def _channels_last(t: torch.Tensor) -> bool:
+    return t.is_contiguous(memory_format=torch.channels_last) and not t.is_contiguous()
+
+
+def _block_outputs(part, run) -> list:
+    """(block type, channels-last, contiguous NCHW) of every residual block's,
+    attention block's and upsample's output while ``run()`` runs."""
+    seen = []
+
+    def hook(module, args, out):
+        seen.append((type(module).__name__, _channels_last(out), out.is_contiguous()))
+
+    handles = [m.register_forward_hook(hook) for m in part.modules()
+               if isinstance(m, (tae.ResBlock, tae.AttnBlock, tae.Upsample))]
+    try:
+        run()
+    finally:
+        for handle in handles:
+            handle.remove()
+    return seen
+
+
+def _half_input(model, half: str, dtype=torch.float32):
+    gen = torch.Generator().manual_seed(1)
+    if half == "encoder":
+        return torch.randn(2, 3, 16, 16, generator=gen, dtype=dtype)
+    first = getattr(model.decoder, "post_quant_conv", model.decoder.conv_in)
+    return torch.randn(2, first.in_channels, 8, 8, generator=gen, dtype=dtype)
+
+
+@pytest.mark.parametrize("half", ["encoder", "decoder"])
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_bf16_inference_keeps_activations_channels_last(layout, half):
+    model = _tiny_model(layout)
+    part, x = getattr(model, half), _half_input(model, half)
+    with torch.no_grad():
+        seen = _block_outputs(part, lambda: part(x))
+    kinds = {kind for kind, _, _ in seen}
+    want = {"ResBlock"} | ({"AttnBlock"} if layout == "taming" else set()) | (
+        {"Upsample"} if half == "decoder" else set())
+    assert kinds == want
+    assert all(cl for _, cl, _ in seen), seen
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_channels_last_decoding_equals_the_nchw_forward(layout):
+    """The decoder under ``no_grad`` (channels-last) against the same module
+    with autograd on (contiguous NCHW throughout) in bf16: equal within
+    bf16's rounding of the two convolution layouts."""
+    model = _tiny_model(layout)
+    x = _half_input(model, "decoder")
+    with torch.no_grad():
+        got = model.decoder(x)
+    seen = []
+    want = _block_outputs(model.decoder, lambda: seen.append(model.decoder(x)))
+    assert want and all(nchw and not cl for _, cl, nchw in want), want
+    torch.testing.assert_close(got, seen[0].detach(), rtol=0.05, atol=0.05)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+
+
+def test_other_calls_stay_contiguous_nchw():
+    """fp32, bf16 under autograd and a sharded bf16 call keep contiguous
+    NCHW in both halves."""
+    from vqvae_tpu_torch.parallel import spatial
+
+    class _OneShard:
+        """A height-sharded call's ``shards`` on one process."""
+        rank, size = 0, 1
+
+        @staticmethod
+        def sum(t):
+            return t
+
+        @staticmethod
+        def halo(t):
+            zero = torch.zeros_like(t[:, :, :1])
+            return torch.cat([zero, t, zero], 2)
+
+    for layout in LAYOUTS:
+        fp32 = _tiny_model(layout, torch.float32)
+        bf16 = _tiny_model(layout)
+        for half in ("encoder", "decoder"):
+            x = _half_input(fp32, half)
+            with torch.no_grad():
+                seen = _block_outputs(getattr(fp32, half), lambda: getattr(fp32, half)(x))
+            seen += _block_outputs(getattr(bf16, half), lambda: getattr(bf16, half)(x))
+            assert seen and all(nchw and not cl for _, cl, nchw in seen), (layout, half, seen)
+    model = _tiny_model("serezd")
+    with torch.no_grad(), spatial.sharded(model, _OneShard()):
+        for half in ("encoder", "decoder"):
+            x = _half_input(model, half)
+            seen = _block_outputs(getattr(model, half), lambda: getattr(model, half)(x))
+            assert seen and all(nchw and not cl for _, cl, nchw in seen), (half, seen)
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_tokenizer_api_returns_contiguous_nhwc(layout):
+    model = _tiny_model(layout)
+    side = 8 if layout == "taming" else 4   # 16^2 images: two levels, or one, halve them
+    tokens = torch.randint(0, 16, (2, side * side), generator=torch.Generator().manual_seed(0))
+    images = model.reconstruct_from_tokens(tokens)
+    assert images.shape == (2, 16, 16, 3) and images.is_contiguous()
+    recon = model.reconstruct(torch.rand(2, 16, 16, 3, generator=torch.Generator().manual_seed(1)))
+    assert recon.shape == (2, 16, 16, 3) and recon.is_contiguous()

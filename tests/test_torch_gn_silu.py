@@ -17,8 +17,11 @@ On the CPU:
   step at every pair; each pair opens exactly one ``norm_act`` span;
 - ``plan`` picks the cluster form with 16-byte accesses at every shape of
   the three benchmark configurations, the two-pass form where a group fits
-  no cluster, and one element an access on ragged shapes; the wrapper's
-  constants are the source's and it rejects what the kernel does not take.
+  no cluster, and one element an access on ragged shapes; ``plan_nhwc``
+  the NHWC grid form at the decoders' shapes and its two-pass form, over
+  bands that fill 32-byte sectors, elsewhere; the wrapper's constants are the source's and it rejects
+  what the kernel does not take; the plain version returns its input's
+  memory format, and the bf16 decoders send every call channels-last.
 
 On the card (``cuda``), the kernel against the plain version at every
 ``norm_act`` and attention-norm shape of the three configurations (batch 2,
@@ -27,8 +30,11 @@ two-pass form, on inputs whose mean is 50 times their spread and on a
 tensor of more than 2^31 elements (``kernel_error`` of ``gn_silu_check.py``:
 the GroupNorm within one bf16 ulp, or 4e-6 in fp32, of the affine's scale;
 with the SiLU, ``F.silu`` of the kernel's own GroupNorm bit for bit); two
-launches bit-identical; a non-contiguous input takes the kernel; the
-launches of a call (two in the two-pass form) and of a training step.
+launches bit-identical; the same for the NHWC form on channels-last inputs
+at the decoders' shapes, ragged, misaligned and two-pass; a channels-last
+input takes the NHWC form as it lies, another non-contiguous one the
+kernel on a copy; the launches and NHWC calls of a call (two launches in
+the two-pass form) and of a training step.
 """
 
 from __future__ import annotations
@@ -108,6 +114,18 @@ def test_plain_version_is_the_module_form_bit_for_bit(ddof, dtype, act):
     assert torch.equal(norm_act(norm, x) if act else norm(x), want)
 
 
+@pytest.mark.parametrize("act", [True, False], ids=["silu", "norm"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_plain_version_returns_its_inputs_memory_format(dtype, act):
+    norm = _norm(64, dtype, 0)
+    x = _input((2, 64, 6, 10), dtype)
+    args = (norm.weight, norm.bias, 32, 1e-6, 0, dtype, act)
+    want = gs.gn_silu_reference(x, *args)
+    got = gs.gn_silu_reference(x.contiguous(memory_format=torch.channels_last), *args)
+    assert want.is_contiguous() and gs.channels_last(got)
+    assert torch.equal(got, want)
+
+
 def test_plain_version_matches_the_jax_package():
     import jax.numpy as jnp
 
@@ -127,13 +145,16 @@ def test_plain_version_matches_the_jax_package():
 
 class _Spy:
     """Stands in for ``autoencoder.gn_silu``: counts the calls by ``act``
-    and returns the plain version's result."""
+    and by the input's layout (channels-last or not) and returns the plain
+    version's result."""
 
     def __init__(self):
         self.calls = collections.Counter()
+        self.layouts = collections.Counter()
 
     def __call__(self, x, weight, bias, num_groups, eps, ddof, dtype, act=True):
         self.calls[act] += 1
+        self.layouts[gs.channels_last(x)] += 1
         return gs.gn_silu_reference(x, weight, bias, num_groups, eps, ddof, dtype, act)
 
 
@@ -227,7 +248,7 @@ def test_a_training_step_never_calls_it_and_an_eval_step_does(monkeypatch, tmp_p
     assert spy.calls == {True: 2 * (2 * 3 + 1)}
 
 
-def _taming_tiny():
+def _taming_tiny(dtype=torch.float32):
     import json
 
     from benchmark.reference import taming
@@ -236,7 +257,16 @@ def _taming_tiny():
                                   / "taming_vqgan_f16.json").read_text()))
     return vqvae.VQVAE.from_config(
         parse_config({k: cfg[k] for k in ("image_size", "autoencoder", "quantizer")}),
-        device="cpu", generator=torch.Generator().manual_seed(0))
+        dtype=dtype, device="cpu", generator=torch.Generator().manual_seed(0))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_decoding_sends_bf16_calls_channels_last(spy, dtype):
+    """Every call of a decode reaches ``gn_silu`` channels-last in bf16 (the
+    NHWC form on the card) and contiguous NCHW in fp32."""
+    tokens = torch.randint(0, 8, (2, 64), generator=torch.Generator().manual_seed(0))
+    _taming_tiny(dtype).reconstruct_from_tokens(tokens)
+    assert spy.layouts == {dtype == torch.bfloat16: 13 + 3}
 
 
 def test_each_pair_opens_one_norm_act_span(spy):
@@ -376,7 +406,70 @@ def test_plan_takes_one_element_an_access_on_ragged_shapes(n, hw, aligned):
     assert p.vec == 1 and p.parts == 0 and p.cluster * p.slice >= n
 
 
-@pytest.mark.parametrize("name", ["THREADS", "MAX_CLUSTER"])
+@pytest.mark.parametrize("case", ["gumbel_decode", "taming_decode"])
+def test_plan_nhwc_takes_the_grid_form_at_the_decoders_shapes(case):
+    """At every bf16 decoder shape the NHWC form is the grid form: rounds of
+    whole images over at most one CTA an SM, slices of whole pixels that fit
+    ``GRID_SLICE_BYTES``, as few rounds as fit, spread evenly."""
+    batch, dtype, _, shapes = CONFIG_SHAPES[case]
+    for c, h, w in shapes:
+        cg, hw = c // 32, h * w
+        for b in (1, 2, batch):
+            p = gsc.plan_nhwc(b, 32, cg, hw, 2, True, H100_SMS)
+            assert p.images >= 1 and p.parts == 0 and p.vec == 8, (c, h, b, p)
+            assert p.images * p.cluster <= H100_SMS and p.images <= b
+            assert p.slice == -(-hw // p.cluster) and p.slice * c * 2 <= gsc.GRID_SLICE_BYTES
+            rounds = -(-b // p.images)
+            fewer = -(-b // (rounds - 1)) if rounds > 1 else None
+            assert fewer is None or -(-hw // (H100_SMS // fewer)) * c * 2 > gsc.GRID_SLICE_BYTES
+    # 256^2 at 128 channels: one 16 MB image a round over 132 CTAs of 124 KB
+    assert gsc.plan_nhwc(32, 32, 4, 65536, 2, True, H100_SMS) == gsc.Plan(8, 132, 497, 0, 0, 1)
+    assert gsc.plan_nhwc(32, 32, 4, 16384, 2, True, H100_SMS) == gsc.Plan(8, 26, 631, 0, 0, 5)
+    assert gsc.plan_nhwc(32, 32, 16, 256, 2, True, H100_SMS) == gsc.Plan(8, 4, 64, 0, 0, 32)
+
+
+@pytest.mark.parametrize("cg,esize,aligned,want", [
+    (4, 2, True, (4, 8)),      # 128 channels bf16: 4 groups of 8 bytes fill a sector
+    (8, 2, True, (2, 8)),
+    (16, 2, True, (1, 8)),
+    (2, 2, True, (8, 8)),      # a quarter of an access a group
+    (1, 2, True, (16, 1)),     # an eighth: one element an access
+    (3, 2, True, (8, 1)),      # ragged: 8 groups of 3 channels, 48 bytes
+    (4, 2, False, (4, 1)),     # a misaligned pointer: one element an access
+    (1024, 2, False, None),    # 1024 accesses a pixel: more than a CTA's threads
+])
+def test_nhwc_band_fills_sectors(cg, esize, aligned, want):
+    assert gsc.nhwc_band(32, cg, esize, aligned) == want
+
+
+def test_plan_nhwc_at_large_and_ragged_shapes():
+    """Where no round of the grid form holds an image, or 16-byte accesses do
+    not suit the widths, the two-pass form over sector-wide bands."""
+    # (2, 128, 512, 512) bf16: 64 MB an image; bands of 32 bytes, chunks of
+    # 32 KB (1024 pixels), about four statistics CTAs per SM
+    assert gsc.plan_nhwc(2, 32, 4, 512 * 512, 2, True, H100_SMS) == gsc.Plan(8, 0, 1024, 33, 4)
+    # (32, 128, 384, 384) bf16: 36 MB an image
+    assert gsc.plan_nhwc(32, 32, 4, 384 * 384, 2, True, H100_SMS) == gsc.Plan(8, 0, 1024, 3, 4)
+    # ragged: 96 channels bf16 at 7 x 9, one element an access
+    assert gsc.plan_nhwc(2, 32, 3, 63, 2, True, H100_SMS) == gsc.Plan(1, 0, 682, 1, 8)
+    # misaligned: one element an access, so the two-pass form
+    assert gsc.plan_nhwc(2, 32, 4, 256, 2, False, H100_SMS) == gsc.Plan(1, 0, 1024, 1, 4)
+
+
+def test_takes_what_the_kernel_reads_as_it_lies():
+    x = torch.zeros(2, 128, 8, 8, dtype=torch.bfloat16)
+    assert gsc.takes(x, 32)
+    assert gsc.takes(x.contiguous(memory_format=torch.channels_last), 32)
+    assert not gsc.takes(x.transpose(2, 3), 32)
+    # fp32 keeps NCHW: a channels-last fp32 input goes to the kernel on a copy
+    assert not gsc.takes(x.float().contiguous(memory_format=torch.channels_last), 32)
+    # 32 groups of 1024 channels, misaligned: 1024 accesses a pixel
+    wide = torch.zeros(1, 32 * 1024 * 2 + 1, 1, dtype=torch.bfloat16)[:, 1:]
+    wide = wide.view(1, 2, 1, 32 * 1024).permute(0, 3, 1, 2)
+    assert gs.channels_last(wide) and not gsc.takes(wide, 32)
+
+
+@pytest.mark.parametrize("name", ["THREADS", "MAX_CLUSTER", "NHWC_THREADS", "MAX_BAND"])
 def test_wrapper_constants_match_the_source(name):
     source = (_build.CSRC_DIR / "gn_silu.cu").read_text()
     found = re.search(rf"constexpr int {name} = (\d+);", source)
@@ -454,6 +547,71 @@ def test_kernel_matches_plain_version_on_card(case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["gumbel_decode", "taming_decode"])
+def test_nhwc_form_matches_plain_version_on_card(case):
+    """Channels-last inputs at every bf16 decoder shape, at batch 2 (also
+    with means 50 times the spread) and at the cells' batch of 32 at 256^2:
+    the NHWC form within ``kernel_error``'s limit, its output channels-last,
+    two launches bit-identical, one launch and one NHWC call a call."""
+    dev = _card()
+    batch, dtype, ddof, shapes = CONFIG_SHAPES[case]
+    for k, (c, h, w) in enumerate(shapes):
+        runs = [(2, 1.5, 2.0), (2, 50.0, 1.0), (2, -50.0, 1.0)]
+        for b, mean, std in runs + [(batch, 1.5, 2.0)] if h == 256 else runs:
+            x, weight, bias = _case((b, c, h, w), dtype, dev, k, mean, std)
+            x = x.contiguous(memory_format=torch.channels_last)
+            launches, calls = gs.gn_silu.launches, gs.gn_silu.nhwc_calls
+            worst = check_against_plain(x, weight, bias, ddof)
+            assert worst <= 1, (case, b, c, h, mean, worst)
+            assert (gs.gn_silu.launches - launches, gs.gn_silu.nhwc_calls - calls) == (2, 2)
+            again = gsc.gn_silu_cuda(x, weight, bias, 32, 1e-6, ddof, True)
+            assert gs.channels_last(again)
+            assert torch.equal(again, gsc.gn_silu_cuda(x, weight, bias, 32, 1e-6, ddof, True))
+            del x, again
+            torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", [((2, 64, 7, 9), torch.bfloat16),
+                                         ((2, 96, 7, 9), torch.bfloat16),
+                                         ((3, 96, 5, 5), torch.bfloat16),
+                                         ((2, 32, 6, 10), torch.bfloat16),
+                                         ((2, 64, 12, 12), torch.bfloat16)])
+def test_nhwc_form_on_ragged_and_misaligned_inputs_on_card(shape, dtype):
+    """Channel counts whose groups do not suit 16-byte accesses take the
+    two-pass form one element an access; a channels-last view one element
+    off 16-byte alignment too; both within the limit."""
+    dev = _card()
+    x, weight, bias = _case(shape, dtype, dev, 5)
+    x = x.contiguous(memory_format=torch.channels_last)
+    for ddof in (0, 1):
+        assert check_against_plain(x, weight, bias, ddof) <= 1
+    b, c, h, w = shape
+    flat = torch.empty(x.numel() + 1, dtype=dtype, device=dev)
+    shifted = flat[1:].view(b, h, w, c).permute(0, 3, 1, 2)
+    shifted.copy_(x)
+    assert gs.channels_last(shifted) and shifted.data_ptr() % 16
+    calls = gs.gn_silu.nhwc_calls
+    assert check_against_plain(shifted, weight, bias, 1) <= 1
+    assert gs.gn_silu.nhwc_calls - calls == 2
+
+
+@pytest.mark.cuda
+def test_nhwc_two_pass_form_on_card():
+    """(2, 128, 512, 512) bf16 channels-last: 64 MB an image, more than a
+    round of the grid form holds: the two-pass form, two launches a call."""
+    dev = _card()
+    x, weight, bias = _case((2, 128, 512, 512), torch.bfloat16, dev, 9)
+    x = x.contiguous(memory_format=torch.channels_last)
+    assert gsc.plan_nhwc(2, 32, 4, 512 * 512, 2, True, H100_SMS).parts > 0
+    launches, calls = gs.gn_silu.launches, gs.gn_silu.nhwc_calls
+    assert check_against_plain(x, weight, bias, 1) <= 1
+    assert (gs.gn_silu.launches - launches, gs.gn_silu.nhwc_calls - calls) == (4, 2)
+    again = gsc.gn_silu_cuda(x, weight, bias, 32, 1e-6, 1, True)
+    assert torch.equal(again, gsc.gn_silu_cuda(x, weight, bias, 32, 1e-6, 1, True))
+
+
+@pytest.mark.cuda
 def test_silu_gives_f_silu_bits_at_every_bf16_value_on_card():
     """With w = 0 the GroupNorm's output is the bias: 65536 channels whose
     biases are the 65536 bf16 bit patterns put every bf16 value through the
@@ -511,33 +669,42 @@ def test_two_pass_form_and_more_than_2_31_elements_on_card():
 
 @pytest.mark.cuda
 def test_non_contiguous_input_takes_the_kernel_on_card():
-    """A channels_last or transposed input goes to the kernel (on a
-    contiguous copy): one launch, the bits of the contiguous input's call;
-    an input in another dtype than the module's raises."""
+    """A channels_last input takes the NHWC form as it lies (one launch, one
+    NHWC call, a channels-last output within the limit); a transposed one
+    goes to the kernel on a contiguous copy (one launch, the bits of the
+    contiguous input's call); an input in another dtype than the module's
+    raises."""
     dev = _card()
     norm = _norm(128, torch.bfloat16, 0).to(dev)
     x = _input((2, 128, 16, 24), torch.bfloat16).to(dev)
     with torch.no_grad():
         want = norm_act(norm, x)
-        for other in (x.contiguous(memory_format=torch.channels_last),
-                      x.transpose(2, 3).contiguous().transpose(2, 3)):
-            assert not other.is_contiguous()
-            launches = gs.gn_silu.launches
-            got = norm_act(norm, other)
-            assert gs.gn_silu.launches - launches == 1
-            assert torch.equal(got, want)
+        nhwc = x.contiguous(memory_format=torch.channels_last)
+        launches, calls = gs.gn_silu.launches, gs.gn_silu.nhwc_calls
+        got = norm_act(norm, nhwc)
+        assert (gs.gn_silu.launches - launches, gs.gn_silu.nhwc_calls - calls) == (1, 1)
+        assert gs.channels_last(got)
+        alone = gsc.gn_silu_cuda(nhwc, norm.weight, norm.bias, 32, 1e-6, 0, False)
+        assert kernel_error(nhwc, norm.weight, norm.bias, 32, 1e-6, 0, alone, got) <= 1
+        other = x.transpose(2, 3).contiguous().transpose(2, 3)
+        assert not other.is_contiguous() and not gs.channels_last(other)
+        launches, calls = gs.gn_silu.launches, gs.gn_silu.nhwc_calls
+        got = norm_act(norm, other)
+        assert (gs.gn_silu.launches - launches, gs.gn_silu.nhwc_calls - calls) == (1, 0)
+        assert torch.equal(got, want)
         with pytest.raises(ValueError, match="dtype"):
             norm_act(norm, x.float())
 
 
 def _count_call(fn) -> tuple:
-    """(launches, norm_act spans) of one call of ``fn`` under a capture."""
-    launches = gs.gn_silu.launches
+    """(launches, NHWC calls, norm_act spans) of one call of ``fn`` under a
+    capture."""
+    launches, calls = gs.gn_silu.launches, gs.gn_silu.nhwc_calls
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
         fn()
     torch.cuda.synchronize()
     spans = sum(s["name"] == "norm_act" for s in introspect.span_log())
-    return gs.gn_silu.launches - launches, spans
+    return gs.gn_silu.launches - launches, gs.gn_silu.nhwc_calls - calls, spans
 
 
 @pytest.mark.cuda
@@ -548,18 +715,18 @@ def test_launches_per_call_on_card():
                                                      / "taming_vqgan_f16.yaml")),
                                      dtype=torch.bfloat16, device=dev, generator=gen)
     tokens = torch.randint(0, 16384, (2, 256), device=dev)
-    assert _count_call(lambda: taming.reconstruct_from_tokens(tokens)) == (35 + 4, 35)
+    assert _count_call(lambda: taming.reconstruct_from_tokens(tokens)) == (35 + 4, 35 + 4, 35)
     del taming
     gumbel = vqvae.VQVAE.from_config(load_config(str(ROOT / "example_confs"
                                                      / "gumbel_vqgan.yaml")),
                                      dtype=torch.bfloat16, device=dev, generator=gen)
     tokens = torch.randint(0, 1024, (2, 256), device=dev)
-    assert _count_call(lambda: gumbel.reconstruct_from_tokens(tokens)) == (21, 21)
+    assert _count_call(lambda: gumbel.reconstruct_from_tokens(tokens)) == (21, 21, 21)
     del gumbel
     ema = vqvae.VQVAE.from_config(load_config(str(ROOT / "example_confs" / "ema_vqvae.yaml")),
                                   device=dev, generator=gen)
     images = torch.rand(2, 256, 256, 3, device=dev)
-    assert _count_call(lambda: ema.get_tokens(images)) == (21, 21)
+    assert _count_call(lambda: ema.get_tokens(images)) == (21, 0, 21)
 
 
 @pytest.mark.cuda
@@ -572,7 +739,7 @@ def test_a_training_step_launches_nothing_on_card(monkeypatch, tmp_path):
     state = trainer.init_state()
     images = torch.randint(0, 256, (4, 16, 16, 3), dtype=torch.uint8,
                            generator=torch.Generator().manual_seed(0))
-    launches = gs.gn_silu.launches
+    launches, calls = gs.gn_silu.launches, gs.gn_silu.nhwc_calls
     for host_step in (0, 1):
         trainer.host_step = host_step
         trainer.train_step(state, {"image": images}, epoch=0)
@@ -580,3 +747,4 @@ def test_a_training_step_launches_nothing_on_card(monkeypatch, tmp_path):
     assert gs.gn_silu.launches == launches
     trainer.eval_step(state, {"image": images}, epoch=0)
     assert gs.gn_silu.launches == launches + 2 * (2 * 3 + 1)
+    assert gs.gn_silu.nhwc_calls == calls   # fp32: contiguous NCHW

@@ -8,7 +8,8 @@
 // that autograd does not record (ops/gn_silu.py says which).
 //
 // For each (batch, group) of a contiguous NCHW tensor -- a contiguous run of
-// n = (C / G) H W elements -- it computes
+// n = (C / G) H W elements -- or of a channels-last (NHWC) one -- C / G
+// adjacent channels at each of the H W pixels -- it computes
 //     mean = sum x / n,   var = sum (x - mean)^2 / max(n - ddof, 1)
 //     z    = round_T((x - mean) a + b[c]),   a = rsqrt(var + eps) w[c]
 //     out  = act ? round_T(z / (1 + exp(-z))) : z
@@ -52,11 +53,45 @@
 // kernel merges a group's partials in the same order and normalises from
 // device memory.
 //
+// NHWC forms, for channels-last bf16 tensors, which the bf16 inference
+// autoencoder keeps so that cuDNN's NHWC convolutions take them as they lie
+// (models/autoencoder.py). A group is C / G adjacent channels at every
+// pixel: at 128 channels in bf16, 4 of them, 8 bytes. A cluster that held a
+// band of whole 32-byte sectors of groups, at every pixel of one image, was
+// tried first and ran at 27-41% of the byte bound at the decoders' shapes
+// whatever its band, cluster and CTA size (PERF.md): a band's accesses are
+// strided, and at 256^2 a band (2 MB) takes a whole SM per CTA, whose
+// phases then run in lockstep with the others'. What is kept:
+//
+// Grid form: one cooperative launch of one CTA an SM, NHWC_THREADS threads.
+// A round holds `images` whole images (one at 256^2 x 128 in bf16: 16 MB
+// over 132 CTAs of 124 KB), each CTA a slice of whole pixels, all channels,
+// read contiguously by cp.async. Each CTA takes its slice's (mean, M2) of
+// every group as the cluster form does (its threads' sums, the mean, the
+// centred squares) and writes them out; a grid barrier; every CTA of an
+// image then stages the image's partials in shared memory, merges them in
+// the same order (in double: the mean from the counts times means, M2 from
+// theirs plus the counts times the means' squared distance), and normalises
+// its slice from shared memory, each thread with its column's affine in
+// registers, issuing the copy of its slice of the next round's image into
+// each slot once the slot's output is stored. Each element is read once and
+// written once; the partials take two buffers, by the round's parity.
+//
+// Two-pass form, for what the grid form does not take (an image more than
+// its round holds, widths unsuited to 16-byte accesses, misaligned
+// pointers): a band is `band` groups whose channels fill a 32-byte sector
+// at every pixel of one image; a statistics kernel takes chunks of a
+// band's pixels as above and writes each group's merged (mean, M2) per
+// part; an apply kernel merges them and normalises from device memory,
+// the images last to first so that the last ones read may come from L2.
+//
 // Offsets into the tensor are 64-bit (it may pass 2^31 elements); offsets
 // within a group are 32-bit (the wrapper refuses n >= 2^31). Every sum is
 // taken in a fixed order, so two launches give the same bits. The 16-byte
-// path needs n and H W to be multiples of 16 bytes' worth of elements and x,
-// out 16-byte aligned; otherwise the same kernels read one element at a time.
+// path needs x, out 16-byte aligned and, in NCHW, n and H W to be multiples
+// of 16 bytes' worth of elements, in NHWC a band's channels and a group's
+// channels a multiple of it (or a group a half or a quarter of it);
+// otherwise the same kernels read one element at a time.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -73,6 +108,9 @@ constexpr int THREADS = 256;       // threads per CTA
 constexpr int WARPS = THREADS / 32;
 constexpr int UNROLL = 4;          // 16-byte loads a thread keeps in flight
 constexpr int MAX_CLUSTER = 16;    // CTAs per group in the cluster form, at most
+constexpr int NHWC_THREADS = 512;  // threads per CTA of the NHWC forms
+constexpr int NHWC_WARPS = NHWC_THREADS / 32;
+constexpr int MAX_BAND = 32;       // groups a CTA sums in the NHWC forms, at most
 
 // ---------------------------------------------------------------- element access
 
@@ -423,6 +461,502 @@ gn_apply_kernel(const T* __restrict__ x, const double2* __restrict__ partials,
               hw, w + c0, b + c0, stat, act);
 }
 
+// ---------------------------------------------------------------- NHWC form
+
+// A band is `band` adjacent groups, bc = band cg channels, at every pixel of
+// one image; a pixel's part of it is apx = bc / V accesses (columns). The
+// CTA's threads take rows = NHWC_THREADS / apx pixels at a time: thread t
+// column t % apx of pixel t / apx, the threads past rows apx none. A column's
+// V channels lie in the band's groups g0 .. g0 + GPA - 1 (GPA > 1 only where
+// a group is V / GPA channels).
+struct Lane {
+  int q, p0, rows, g0;
+};
+
+__device__ __forceinline__ Lane lane_of(int apx, int V, int cg) {
+  Lane l;
+  l.rows = NHWC_THREADS / apx;
+  l.q = threadIdx.x % apx;
+  l.p0 = static_cast<int>(threadIdx.x) < l.rows * apx ? threadIdx.x / apx : (1 << 30);
+  l.g0 = l.q * V / cg;
+  return l;
+}
+
+// adds an access's V values to the sums of its GPA groups, V / GPA values
+// each, in a fixed order
+template <int V, int GPA>
+__device__ __forceinline__ void add_groups(const float (&f)[V], float (&acc)[GPA]) {
+  constexpr int CG = V / GPA;
+#pragma unroll
+  for (int i = 0; i < GPA; ++i) {
+    float part[CG];
+#pragma unroll
+    for (int v = 0; v < CG; ++v) part[v] = f[i * CG + v];
+    acc[i] += tree_sum<CG>(part);
+  }
+}
+
+// Issues the copies of the thread's columns of pixels [0, npix) from src
+// (`stride` 16-byte accesses a pixel) to the shared memory at s0 (apx
+// accesses a pixel) by cp.async, all in flight at once with no registers
+// held; cp.async.wait_all ends them.
+template <typename T, int V>
+__device__ __forceinline__ void issue_band(const typename Io<T, V>::Raw* src, long long stride,
+                                           unsigned s0, int npix, int apx, const Lane& l) {
+  static_assert(sizeof(typename Io<T, V>::Raw) == 16, "cp.async copies 16-byte accesses");
+  for (int p = l.p0; p < npix; p += l.rows)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     s0 + static_cast<unsigned>(p * apx + l.q) * 16u),
+                 "l"(src + p * stride + l.q)
+                 : "memory");
+}
+
+// Adds the thread's own slots of pixels [0, npix) of sm to its sums (no
+// barrier: no thread reads another's slots).
+template <typename T, int V, int GPA>
+__device__ __forceinline__ void sum_band(const typename Io<T, V>::Raw* sm, int npix, int apx,
+                                         const Lane& l, float (&acc)[GPA]) {
+#pragma unroll 4
+  for (int p = l.p0; p < npix; p += l.rows) {
+    float f[V];
+    Io<T, V>::unpack(sm[p * apx + l.q], f);
+    add_groups<V, GPA>(f, acc);
+  }
+}
+
+// Copies the thread's columns of pixels [0, npix) from src (`stride`
+// accesses a pixel) to sm (apx accesses a pixel) and adds them to its sums:
+// 16-byte accesses by cp.async, single elements through registers, UNROLL
+// in flight.
+template <typename T, int V, int GPA>
+__device__ __forceinline__ void load_band(const typename Io<T, V>::Raw* __restrict__ src,
+                                          long long stride, typename Io<T, V>::Raw* sm, int npix,
+                                          int apx, const Lane& l, float (&acc)[GPA]) {
+  using IO = Io<T, V>;
+  using R = typename IO::Raw;
+  if constexpr (sizeof(R) == 16) {
+    issue_band<T, V>(src, stride, static_cast<unsigned>(__cvta_generic_to_shared(sm)), npix,
+                     apx, l);
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    sum_band<T, V, GPA>(sm, npix, apx, l, acc);
+  } else {
+    int p = l.p0;
+    for (; p + (UNROLL - 1) * l.rows < npix; p += UNROLL * l.rows) {
+      R r[UNROLL];
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) r[u] = IO::load(src + (p + u * l.rows) * stride + l.q);
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        sm[(p + u * l.rows) * apx + l.q] = r[u];
+        float f[V];
+        IO::unpack(r[u], f);
+        add_groups<V, GPA>(f, acc);
+      }
+    }
+    for (; p < npix; p += l.rows) {
+      const R r = IO::load(src + p * stride + l.q);
+      sm[p * apx + l.q] = r;
+      float f[V];
+      IO::unpack(r, f);
+      add_groups<V, GPA>(f, acc);
+    }
+  }
+}
+
+// The sum of v over a warp, the same in every lane (IEEE addition commutes,
+// so lanes l and l ^ o add the same pair).
+template <typename F> __device__ __forceinline__ F warp_sum(F v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// The CTA's sum of each of the band's groups into out[g], g < band, in a
+// fixed order. The threads' values go to red as `units` rows of apx columns
+// (red[(u apx + q) GPA + i]): where apx is a power of two up to 32 (every
+// 16-byte path) a lane's column is lane % apx, shuffles first sum each
+// warp's lanes of a column and a unit is a warp; otherwise a unit is a row
+// of threads. Then warp w sums groups w, w + NHWC_WARPS, ..., its lanes over
+// the units of the group's columns [g cg / V, ceil((g + 1) cg / V)).
+template <int GPA>
+__device__ __forceinline__ void band_sums(const float (&acc)[GPA], float* red, float* out,
+                                          int band, int apx, int V, int cg) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  __syncthreads();   // the previous call's readers are done with red and out
+  int units;
+  if (apx <= 32 && (apx & (apx - 1)) == 0) {
+    float v[GPA];
+#pragma unroll
+    for (int i = 0; i < GPA; ++i) {
+      v[i] = acc[i];
+      for (int o = 16; o >= apx; o >>= 1) v[i] += __shfl_xor_sync(0xffffffffu, v[i], o);
+    }
+    if (lane < apx) {
+#pragma unroll
+      for (int i = 0; i < GPA; ++i) red[(warp * apx + lane) * GPA + i] = v[i];
+    }
+    units = NHWC_WARPS;
+  } else {
+#pragma unroll
+    for (int i = 0; i < GPA; ++i) red[threadIdx.x * GPA + i] = acc[i];
+    units = NHWC_THREADS / apx;
+  }
+  __syncthreads();
+  for (int g = warp; g < band; g += NHWC_WARPS) {
+    const int qlo = g * cg / V, nq = ((g + 1) * cg + V - 1) / V - qlo;
+    float s = 0.f;
+    for (int i = lane; i < nq * units; i += 32) {
+      const int q = qlo + i % nq;
+      s += red[((i / nq) * apx + q) * GPA + g - q * V / cg];
+    }
+    s = warp_sum(s);
+    if (lane == 0) out[g] = s;
+  }
+  __syncthreads();
+}
+
+// Each of the band's groups' (mean, M2) over the npix pixels the CTA holds in
+// sm (acc: the thread's sums from load_band), written to part[g] by thread g.
+template <typename T, int V, int GPA>
+__device__ __forceinline__ void band_stats(const typename Io<T, V>::Raw* sm, int npix, int apx,
+                                           const Lane& l, int band, int cg, float (&acc)[GPA],
+                                           float* red, float* sums, float* means, float2* part) {
+  constexpr int CG = V / GPA;
+  band_sums<GPA>(acc, red, sums, band, apx, V, cg);
+  const float cnt = static_cast<float>(npix) * cg;
+  if (static_cast<int>(threadIdx.x) < band) means[threadIdx.x] = npix > 0 ? sums[threadIdx.x] / cnt : 0.f;
+  __syncthreads();
+  float mean[GPA], sq[2][GPA];
+#pragma unroll
+  for (int i = 0; i < GPA; ++i) {
+    mean[i] = means[l.g0 + i];
+    sq[0][i] = sq[1][i] = 0.f;
+  }
+#pragma unroll 4
+  for (int p = l.p0; p < npix; p += l.rows) {
+    float f[V];
+    Io<T, V>::unpack(sm[p * apx + l.q], f);
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const float d = f[v] - mean[v / CG];
+      sq[v & 1][v / CG] = fmaf(d, d, sq[v & 1][v / CG]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < GPA; ++i) sq[0][i] += sq[1][i];
+  band_sums<GPA>(sq[0], red, sums, band, apx, V, cg);
+  if (static_cast<int>(threadIdx.x) < band)
+    part[threadIdx.x] = make_float2(means[threadIdx.x], sums[threadIdx.x]);
+}
+
+// Writes the output of the thread's columns of pixels [0, npix) of src
+// (`sstride` accesses a pixel) to dst (`dstride`). w and b start at the
+// band's first channel; stat holds the band's groups' (mean, rstd).
+template <typename T, int V, bool ACT>
+__device__ __forceinline__ void apply_band_range(const typename Io<T, V>::Raw* src, long long sstride,
+                                                 typename Io<T, V>::Raw* __restrict__ dst,
+                                                 long long dstride, int npix, const Lane& l,
+                                                 const float* __restrict__ w,
+                                                 const float* __restrict__ b, const float2* stat,
+                                                 int cg) {
+  using IO = Io<T, V>;
+  // the column's affine: (x - mean) a + b, a = rstd w, the same at every pixel
+  float mu[V], a[V], c[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const int ch = l.q * V + v;
+    const float2 s = stat[ch / cg];
+    mu[v] = s.x;
+    a[v] = s.y * __ldg(w + ch);
+    c[v] = __ldg(b + ch);
+  }
+#pragma unroll 4
+  for (int p = l.p0; p < npix; p += l.rows) {
+    float f[V];
+    IO::unpack(src[p * sstride + l.q], f);
+#pragma unroll
+    for (int v = 0; v < V; ++v) f[v] = fmaf(f[v] - mu[v], a[v], c[v]);
+    if (ACT) {
+      IO::round(f);
+      silu_all<T, V>(f);
+    }
+    dst[p * dstride + l.q] = IO::pack(f);
+  }
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void apply_band(const typename Io<T, V>::Raw* src, long long sstride,
+                                           typename Io<T, V>::Raw* __restrict__ dst,
+                                           long long dstride, int npix, const Lane& l,
+                                           const float* __restrict__ w,
+                                           const float* __restrict__ b, const float2* stat,
+                                           int cg, int act) {
+  if (act) apply_band_range<T, V, true>(src, sstride, dst, dstride, npix, l, w, b, stat, cg);
+  else apply_band_range<T, V, false>(src, sstride, dst, dstride, npix, l, w, b, stat, cg);
+}
+
+// Each group's (mean, rstd) of an image into stat[g], from the (mean, M2)
+// of its cs CTAs in `from` ([CTA][group], written in this launch), the same
+// in every CTA. The block is first copied to `stage` in shared memory by
+// 16-byte cp.async.cg copies, past L1 (G even, so the block is 16-byte
+// aligned), all in flight at once. Then, in double, lane g of warp w sums
+// group g over CTAs w, w + NHWC_WARPS, ... (a warp's reads of one CTA's
+// groups are consecutive: no bank conflicts) into red[w][g], and lane g of
+// warp 0 sums the warps' in order: first the counts times the means, for
+// the image's mean; then the CTAs' M2 and their counts times their means'
+// squared distance from it. G is at most 32.
+__device__ __forceinline__ void merge_image(const float2* from, float2* stage, double* red, int cs,
+                                            int slice, int hw, int G, int cg, int ddof, float eps,
+                                            float2* stat) {
+  const unsigned st = static_cast<unsigned>(__cvta_generic_to_shared(stage));
+  for (int i = threadIdx.x; 2 * i < cs * G; i += NHWC_THREADS)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(st + 16u * i),
+                 "l"(from + 2 * i)
+                 : "memory");
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+  const int g = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const double n = static_cast<double>(cg) * hw;
+  double v = 0.0;
+  if (g < G) {
+    for (int c = warp; c < cs; c += NHWC_WARPS) {
+      const int nb = max(0, min(slice, hw - c * slice));
+      v = fma(static_cast<double>(nb) * cg, static_cast<double>(stage[c * G + g].x), v);
+    }
+  }
+  red[warp * 32 + g] = v;
+  __syncthreads();
+  if (warp == 0) {
+    double sum = 0.0;
+    for (int w = 0; w < NHWC_WARPS; ++w) sum += red[w * 32 + g];
+    red[NHWC_WARPS * 32 + g] = sum / n;
+  }
+  __syncthreads();
+  const double mean = red[NHWC_WARPS * 32 + g];
+  v = 0.0;
+  if (g < G) {
+    for (int c = warp; c < cs; c += NHWC_WARPS) {
+      const int nb = max(0, min(slice, hw - c * slice));
+      if (nb == 0) continue;
+      const float2 p = stage[c * G + g];
+      const double d = static_cast<double>(p.x) - mean;
+      v += p.y + static_cast<double>(nb) * cg * d * d;
+    }
+  }
+  __syncthreads();   // every warp has read the mean
+  red[warp * 32 + g] = v;
+  __syncthreads();
+  if (warp == 0 && g < G) {
+    double m2 = 0.0;
+    for (int w = 0; w < NHWC_WARPS; ++w) m2 += red[w * 32 + g];
+    stat[g] = mean_rstd(mean, m2, cg * hw, ddof, eps);
+  }
+}
+
+// Normalises the thread's slots of pixels [0, npix) of sm into dst
+// (`stride` accesses a pixel), issuing the copy of the same slot of `next`
+// (if any) into each slot once its value is out.
+template <typename T, int V, bool ACT>
+__device__ __forceinline__ void apply_prefetch(const typename Io<T, V>::Raw* sm, unsigned s0,
+                                               int apx, typename Io<T, V>::Raw* __restrict__ dst,
+                                               const typename Io<T, V>::Raw* next,
+                                               long long stride, int npix, const Lane& l,
+                                               const float* __restrict__ w,
+                                               const float* __restrict__ b, const float2* stat,
+                                               int cg) {
+  using IO = Io<T, V>;
+  float mu[V], a[V], c[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const int ch = l.q * V + v;
+    const float2 s = stat[ch / cg];
+    mu[v] = s.x;
+    a[v] = s.y * __ldg(w + ch);
+    c[v] = __ldg(b + ch);
+  }
+  // UNROLL slots at a time: their values read, normalised and stored, then
+  // the next image's copies into them issued (each after the store that
+  // needs the slot's value)
+  int p = l.p0;
+  for (; p < npix; p += UNROLL * l.rows) {
+    typename IO::Raw r[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u)
+      if (p + u * l.rows < npix) r[u] = sm[(p + u * l.rows) * apx + l.q];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int pu = p + u * l.rows;
+      if (pu >= npix) break;
+      float f[V];
+      IO::unpack(r[u], f);
+#pragma unroll
+      for (int v = 0; v < V; ++v) f[v] = fmaf(f[v] - mu[v], a[v], c[v]);
+      if (ACT) {
+        IO::round(f);
+        silu_all<T, V>(f);
+      }
+      dst[pu * stride + l.q] = IO::pack(f);
+    }
+    if (next != nullptr) {
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        const int pu = p + u * l.rows;
+        if (pu >= npix) break;
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                         s0 + static_cast<unsigned>(pu * apx + l.q) * 16u),
+                     "l"(next + pu * stride + l.q)
+                     : "memory");
+      }
+    }
+  }
+}
+
+// NHWC grid form: a cooperative grid of `images` cs CTAs, all resident, one
+// an SM. Round r takes images [r images, (r + 1) images): CTA c holds
+// pixels [s slice, (s + 1) slice), s = c % cs, of image r images + c / cs,
+// all its channels, in shared memory; its groups' (mean, M2) go to partials
+// (one of two buffers, by the round's parity: a CTA writes round r + 2's
+// only after the barrier of round r + 1, which every CTA reaches after
+// merging round r's), a grid barrier, then every CTA of the image merges the
+// image's partials and normalises its slice, issuing the copy of its slice
+// of the next round's image into each slot as it frees it. 16-byte accesses
+// only; dynamic shared memory slice C sizeof(T) + cs G sizeof(float2).
+template <typename T, int V, int GPA>
+__global__ void __launch_bounds__(NHWC_THREADS, 1)
+gn_silu_nhwc_grid_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                         const float* __restrict__ b, T* __restrict__ y, float2* partials,
+                         long long batch, int G, int cg, int hw, int cs, int slice, int images,
+                         int act, float eps, int ddof) {
+  using R = typename Io<T, V>::Raw;
+  extern __shared__ __align__(16) unsigned char smem[];
+  R* sm = reinterpret_cast<R*>(smem);
+  __shared__ float red[NHWC_THREADS * GPA];
+  __shared__ float sums[MAX_BAND], means[MAX_BAND];
+  __shared__ float2 part[MAX_BAND];   // this CTA's (mean, M2) a group
+  __shared__ float2 stat[MAX_BAND];   // the image's groups' (mean, rstd)
+  __shared__ double mred[(NHWC_WARPS + 1) * 32];   // the merge's per-warp sums, then the means
+  cg::grid_group grid = cg::this_grid();
+  const int C = G * cg, apx = C / V;
+  // after the slice: the image's partials, staged for the merge
+  float2* stage = reinterpret_cast<float2*>(smem + static_cast<size_t>(slice) * C * sizeof(T));
+  const int j = blockIdx.x / cs, s = blockIdx.x % cs;
+  const int npix = max(0, min(slice, hw - s * slice));
+  const long long stride = C / V, per_image = static_cast<long long>(hw) * stride;
+  const long long first = static_cast<long long>(s) * slice * stride;   // the slice in an image
+  const unsigned s0 = static_cast<unsigned>(__cvta_generic_to_shared(sm));
+  const Lane l = lane_of(apx, V, cg);
+  const long long rounds = (batch + images - 1) / images;
+  if (j < batch) issue_band<T, V>(reinterpret_cast<const R*>(x) + j * per_image + first, stride,
+                                  s0, npix, apx, l);
+  for (long long r = 0; r < rounds; ++r) {
+    const long long image = r * images + j;
+    const bool live = image < batch && npix > 0;
+    float2* buf = partials + (r & 1) * static_cast<long long>(images) * cs * G;
+    if (live) {
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+      float acc[GPA] = {};
+      sum_band<T, V, GPA>(sm, npix, apx, l, acc);
+      band_stats<T, V, GPA>(sm, npix, apx, l, G, cg, acc, red, sums, means, part);
+      if (static_cast<int>(threadIdx.x) < G) buf[blockIdx.x * G + threadIdx.x] = part[threadIdx.x];
+    }
+    __threadfence();
+    grid.sync();
+    if (live) {
+      merge_image(buf + static_cast<long long>(j) * cs * G, stage, mred, cs, slice, hw, G, cg, ddof,
+                  eps, stat);
+      __syncthreads();
+      const bool more = image + images < batch;
+      const R* next = more ? reinterpret_cast<const R*>(x) + (image + images) * per_image + first
+                           : nullptr;
+      R* dst = reinterpret_cast<R*>(y) + image * per_image + first;
+      if (act)
+        apply_prefetch<T, V, true>(sm, s0, apx, dst, next, stride, npix, l, w, b, stat, cg);
+      else
+        apply_prefetch<T, V, false>(sm, s0, apx, dst, next, stride, npix, l, w, b, stat, cg);
+    }
+  }
+}
+
+// NHWC two-pass form, statistics: grid B (G / band) parts; CTA p of an
+// (image, band) takes chunks [p per, (p + 1) per) of `chunk` pixels, per =
+// ceil(chunks / parts), and writes each group's merged (mean, M2) to
+// partials[(image G + group) parts + p]; dynamic shared memory chunk band cg
+// sizeof(T).
+template <typename T, int V, int GPA>
+__global__ void __launch_bounds__(NHWC_THREADS, 1)
+gn_nhwc_stats_kernel(const T* __restrict__ x, double2* __restrict__ partials, int G, int cg,
+                     int hw, int band, int chunk, int parts) {
+  using R = typename Io<T, V>::Raw;
+  extern __shared__ __align__(16) unsigned char smem[];
+  R* sm = reinterpret_cast<R*>(smem);
+  __shared__ float red[NHWC_THREADS * GPA];
+  __shared__ float sums[MAX_BAND], means[MAX_BAND];
+  __shared__ float2 part[MAX_BAND];
+  const long long id = blockIdx.x / parts;
+  const int p = blockIdx.x % parts;
+  const int bands = G / band;
+  const long long image = id / bands;
+  const int k = static_cast<int>(id % bands);
+  const int C = G * cg, bc = band * cg, apx = bc / V;
+  const int chunks = (hw + chunk - 1) / chunk;
+  const int per = (chunks + parts - 1) / parts;
+  const int first = min(chunks, p * per), last = min(chunks, first + per);
+  const Lane l = lane_of(apx, V, cg);
+  double na = 0.0, mean = 0.0, m2 = 0.0;   // thread g's group
+  for (int c = first; c < last; ++c) {
+    const int p0 = c * chunk;
+    const int npix = min(chunk, hw - p0);
+    const long long base = (image * hw + p0) * C + static_cast<long long>(k) * bc;
+    float acc[GPA] = {};
+    load_band<T, V, GPA>(reinterpret_cast<const R*>(x + base), C / V, sm, npix, apx, l, acc);
+    band_stats<T, V, GPA>(sm, npix, apx, l, band, cg, acc, red, sums, means, part);
+    __syncthreads();
+    if (static_cast<int>(threadIdx.x) < band)
+      chan_merge(na, mean, m2, static_cast<double>(npix) * cg, part[threadIdx.x].x,
+                 part[threadIdx.x].y);
+  }
+  if (static_cast<int>(threadIdx.x) < band)
+    partials[(image * G + k * band + threadIdx.x) * parts + p] = make_double2(mean, m2);
+}
+
+// NHWC two-pass form, apply: grid B (G / band) chunks, a CTA a chunk of an
+// (image, band), the last image first: the statistics kernel read it last,
+// so its second read may come from L2.
+template <typename T, int V>
+__global__ void __launch_bounds__(NHWC_THREADS, 1)
+gn_nhwc_apply_kernel(const T* __restrict__ x, const double2* __restrict__ partials,
+                     const float* __restrict__ w, const float* __restrict__ b, T* __restrict__ y,
+                     long long images, int G, int cg, int hw, int band, int chunk, int parts,
+                     int act, float eps, int ddof) {
+  using R = typename Io<T, V>::Raw;
+  __shared__ float2 stat[MAX_BAND];
+  const int bands = G / band;
+  const int chunks = (hw + chunk - 1) / chunk;
+  const long long per_image = static_cast<long long>(bands) * chunks;
+  const long long image = images - 1 - blockIdx.x / per_image;
+  const int k = static_cast<int>(blockIdx.x % per_image / chunks);
+  const int c = static_cast<int>(blockIdx.x % chunks);
+  if (static_cast<int>(threadIdx.x) < band) {
+    const long long per = (chunks + parts - 1) / parts;
+    double na = 0.0, mean = 0.0, m2 = 0.0;
+    for (int p = 0; p < parts; ++p) {
+      const long long lo = min(static_cast<long long>(hw), p * per * chunk);
+      const long long hi = min(static_cast<long long>(hw), (p + 1) * per * chunk);
+      if (hi <= lo) continue;
+      const double2 q = partials[(image * G + k * band + threadIdx.x) * parts + p];
+      chan_merge(na, mean, m2, static_cast<double>(hi - lo) * cg, q.x, q.y);
+    }
+    stat[threadIdx.x] = mean_rstd(mean, m2, cg * hw, ddof, eps);
+  }
+  __syncthreads();
+  const int C = G * cg, bc = band * cg;
+  const int p0 = c * chunk;
+  const long long base = (image * hw + p0) * C + static_cast<long long>(k) * bc;
+  const Lane l = lane_of(bc / V, V, cg);
+  apply_band<T, V>(reinterpret_cast<const R*>(x + base), C / V, reinterpret_cast<R*>(y + base),
+                   C / V, min(chunk, hw - p0), l, w + k * bc, b + k * bc, stat, cg, act);
+}
+
 // ---------------------------------------------------------------- launch
 
 bool aligned(const void* p, uintptr_t n) { return reinterpret_cast<uintptr_t>(p) % n == 0; }
@@ -497,6 +1031,82 @@ cudaError_t launch(const void* x, const float* w, const float* b, void* y, doubl
   return cudaGetLastError();
 }
 
+// The NHWC form of a call: the grid form (images > 0: `images` cs CTAs,
+// slices of `slice` pixels, partials 2 images cs G float2) or the two-pass
+// form (chunks of `slice` pixels, bands of `band` groups, partials groups
+// parts double2).
+template <typename T, int V, int GPA>
+cudaError_t launch_nhwc(const void* x, const float* w, const float* b, void* y, void* partials,
+                        long long groups, int G, int n, int hw, int band, int cs, int slice,
+                        int parts, int images, int act, float eps, int ddof, cudaStream_t s) {
+  const T* xt = static_cast<const T*>(x);
+  T* yt = static_cast<T*>(y);
+  const int cg = n / hw;
+  const long long batch = groups / G;
+  cudaError_t e;
+  if (images > 0) {
+    if constexpr (V == 1) {
+      return cudaErrorInvalidValue;   // the grid form copies 16-byte accesses
+    } else {
+      static unsigned long long done = 0;
+      const auto kern = &gn_silu_nhwc_grid_kernel<T, V, GPA>;
+      e = opt_in(kern, false, done);
+      if (e != cudaSuccess) return e;
+      cudaLaunchAttribute attr;
+      attr.id = cudaLaunchAttributeCooperative;
+      attr.val.cooperative = 1;
+      cudaLaunchConfig_t cfg = {};
+      cfg.gridDim = dim3(static_cast<unsigned>(images * cs));
+      cfg.blockDim = dim3(NHWC_THREADS);
+      cfg.dynamicSmemBytes = static_cast<size_t>(slice) * G * cg * sizeof(T) +
+                             static_cast<size_t>(cs) * G * sizeof(float2);
+      cfg.stream = s;
+      cfg.attrs = &attr;
+      cfg.numAttrs = 1;
+      e = cudaLaunchKernelEx(&cfg, kern, xt, w, b, yt, static_cast<float2*>(partials), batch, G,
+                             cg, hw, cs, slice, images, act, eps, ddof);
+      return e != cudaSuccess ? e : cudaGetLastError();
+    }
+  }
+  const long long bands = batch * (G / band);
+  const size_t smem = static_cast<size_t>(slice) * band * cg * sizeof(T);
+  static unsigned long long done_stats = 0;
+  e = opt_in(&gn_nhwc_stats_kernel<T, V, GPA>, false, done_stats);
+  if (e != cudaSuccess) return e;
+  auto* part = static_cast<double2*>(partials);
+  gn_nhwc_stats_kernel<T, V, GPA><<<static_cast<unsigned>(bands * parts), NHWC_THREADS, smem, s>>>(
+      xt, part, G, cg, hw, band, slice, parts);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const long long chunks = (hw + static_cast<long long>(slice) - 1) / slice;
+  gn_nhwc_apply_kernel<T, V><<<static_cast<unsigned>(bands * chunks), NHWC_THREADS, 0, s>>>(
+      xt, part, w, b, yt, batch, G, cg, hw, band, slice, parts, act, eps, ddof);
+  return cudaGetLastError();
+}
+
+// The NHWC form's template for V elements an access, a group cg channels:
+// GPA = V / cg groups an access where cg < V, else 1.
+template <typename T, int V>
+cudaError_t launch_nhwc_groups(const void* x, const float* w, const float* b, void* y,
+                               void* partials, long long groups, int G, int n, int hw, int band,
+                               int cs, int slice, int parts, int images, int act, float eps,
+                               int ddof, cudaStream_t s) {
+  const int gpa = V > n / hw ? V / (n / hw) : 1;
+  switch (gpa) {
+    case 1:
+      return launch_nhwc<T, V, 1>(x, w, b, y, partials, groups, G, n, hw, band, cs, slice, parts,
+                                  images, act, eps, ddof, s);
+    case 2:
+      return launch_nhwc<T, V, (V >= 2 ? 2 : 1)>(x, w, b, y, partials, groups, G, n, hw, band,
+                                                 cs, slice, parts, images, act, eps, ddof, s);
+    case 4:
+      return launch_nhwc<T, V, (V >= 4 ? 4 : 1)>(x, w, b, y, partials, groups, G, n, hw, band,
+                                                 cs, slice, parts, images, act, eps, ddof, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // A call's shape and form, which the wrapper keeps from call to call
@@ -506,57 +1116,93 @@ struct GnArgs {
   int G, n, hw;       // groups a batch, elements a group (C / G) H W, H W
   int bf16;           // the element type: fp32 (0) or bf16 (1)
   int vec;            // elements an access: 1 or 16 / sizeof(T)
-  int cs;             // cluster form: CTAs a group
-  int slice;          // elements a CTA (cluster form) or a chunk (two-pass form)
-  int parts;          // two-pass form: statistics CTAs a group; 0 in the cluster form
+  int cs;             // NCHW cluster form: CTAs a group; NHWC grid form: CTAs an image
+  int slice;          // elements (NCHW) or pixels (NHWC) a CTA, or a chunk (two-pass forms)
+  int parts;          // two-pass forms: statistics CTAs a group or band; 0 otherwise
   int act;            // SiLU after the GroupNorm
   int ddof;           // the variance's divisor is max(n - ddof, 1)
+  int nhwc;           // the layout: contiguous NCHW (0) or channels-last (1)
+  int band;           // NHWC two-pass form: groups a band
+  int images;         // NHWC grid form: images a round; 0 in the two-pass form
   float eps;
 };
 
-// x and y (B, C, H, W), both fp32 or bf16, contiguous on the current device;
-// w and b C fp32 values; *args the shape and form: groups > 0, n a multiple
-// of hw; vec 1 or 16 / sizeof(T) (then n and hw multiples of it, x and y
-// 16-byte aligned). Cluster form (parts = 0): cs in {1, 2, 4, 8, 16}, slice a
-// multiple of vec with cs slice >= n. Two-pass form (parts >= 1): chunks of
-// `slice` elements, `partials` groups * parts double2 of scratch. Launches
-// one kernel (cluster form) or two (two-pass) on `stream` and returns the
-// first error (0 on success); does not synchronize.
+// x and y (B, C, H, W), both fp32 or bf16 on the current device, both
+// contiguous (nhwc 0) or, in bf16, both channels-last (nhwc 1); w and b C
+// fp32 values;
+// *args the shape and form: groups > 0, n a multiple of hw; vec 1 or 16 /
+// sizeof(T) (then x and y 16-byte aligned). NCHW: with vec > 1, n and hw
+// multiples of vec; cluster form (parts = 0): cs in {1, 2, 4, 8, 16}, slice a
+// multiple of vec with cs slice >= n; two-pass form (parts >= 1): chunks of
+// `slice` elements, `partials` groups parts double2 of scratch. NHWC grid
+// form (images >= 1): vec > 1, C / G a multiple of vec or a half or quarter
+// of it, C a multiple of vec, C / vec at most NHWC_THREADS, G at most
+// MAX_BAND and even, cs slice >= hw, images cs CTAs that can all be resident on the
+// card (the launch fails otherwise), `partials` 2 images cs G float2.
+// NHWC two-pass form (images 0, parts >= 1): bands of `band` groups, dividing
+// G, at most MAX_BAND, with vec > 1 band C / G a multiple of vec and C / G as
+// above, band C / G / vec at most NHWC_THREADS; chunks of `slice` pixels;
+// `partials` groups parts double2. Launches one kernel (cluster and grid
+// forms) or two (two-pass) on `stream` and returns the first error (0 on
+// success); does not synchronize.
 extern "C" int vqt_gn_silu(const void* x, const void* w, const void* b, void* y, void* partials,
                            const GnArgs* args, void* stream) {
   const long long groups = args->groups;
   const int G = args->G, n = args->n, hw = args->hw, bf16 = args->bf16, vec = args->vec;
   const int cs = args->cs, slice = args->slice, parts = args->parts, act = args->act;
-  const int ddof = args->ddof;
+  const int ddof = args->ddof, nhwc = args->nhwc, band = args->band, images = args->images;
   const float eps = args->eps;
   const int wide = bf16 ? 8 : 4;
   bool ok = groups > 0 && G > 0 && n > 0 && hw > 0 && n % hw == 0 && slice > 0 &&
-            (vec == 1 || vec == wide) && slice % vec == 0;
-  if (ok && vec > 1)
-    ok = n % vec == 0 && hw % vec == 0 && aligned(x, 16) && aligned(y, 16);
-  if (ok && parts == 0)
-    ok = cs >= 1 && cs <= MAX_CLUSTER && (cs & (cs - 1)) == 0 &&
-         static_cast<long long>(cs) * slice >= n &&
-         static_cast<long long>(cs) * slice <= INT_MAX && groups * cs <= INT_MAX;
-  if (ok && parts != 0)
-    ok = parts > 0 && partials != nullptr && groups * parts <= INT_MAX &&
-         groups * ((n + static_cast<long long>(slice) - 1) / slice) <= INT_MAX;
+            (vec == 1 || vec == wide) && (nhwc == 0 || (nhwc == 1 && bf16)) && groups % G == 0;
+  if (ok && vec > 1) ok = aligned(x, 16) && aligned(y, 16);
+  const int cg = n / hw;
+  const bool widths = vec == 1 || cg % vec == 0 || (vec % cg == 0 && vec / cg <= 4);
+  if (ok && nhwc && images > 0) {
+    ok = vec > 1 && widths && (G * cg) % vec == 0 && G * cg / vec <= NHWC_THREADS &&
+         G <= MAX_BAND && G % 2 == 0 && cs >= 1 &&
+         static_cast<long long>(cs) * slice >= hw &&
+         static_cast<long long>(images) * cs <= INT_MAX && partials != nullptr;
+  } else if (ok && nhwc) {
+    const long long bands = groups / (band > 0 ? band : 1);
+    ok = band >= 1 && band <= MAX_BAND && G % band == 0 && band * cg / vec <= NHWC_THREADS &&
+         (band * cg) % vec == 0 && widths && parts > 0 && partials != nullptr &&
+         bands * parts <= INT_MAX && bands * ((hw + static_cast<long long>(slice) - 1) / slice) <= INT_MAX;
+  } else if (ok) {
+    ok = slice % vec == 0 && (vec == 1 || (n % vec == 0 && hw % vec == 0));
+    if (ok && parts == 0)
+      ok = cs >= 1 && cs <= MAX_CLUSTER && (cs & (cs - 1)) == 0 &&
+           static_cast<long long>(cs) * slice >= n &&
+           static_cast<long long>(cs) * slice <= INT_MAX && groups * cs <= INT_MAX;
+    if (ok && parts != 0)
+      ok = parts > 0 && partials != nullptr && groups * parts <= INT_MAX &&
+           groups * ((n + static_cast<long long>(slice) - 1) / slice) <= INT_MAX;
+  }
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   const auto* wp = static_cast<const float*>(w);
   const auto* bp = static_cast<const float*>(b);
-  auto* part = static_cast<double2*>(partials);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
-  if (bf16)
-    e = vec > 1 ? launch<__nv_bfloat16, 8>(x, wp, bp, y, part, groups, G, n, hw, cs, slice, parts,
-                                           act, eps, ddof, s)
-                : launch<__nv_bfloat16, 1>(x, wp, bp, y, part, groups, G, n, hw, cs, slice, parts,
-                                           act, eps, ddof, s);
-  else
-    e = vec > 1 ? launch<float, 4>(x, wp, bp, y, part, groups, G, n, hw, cs, slice, parts, act,
-                                   eps, ddof, s)
-                : launch<float, 1>(x, wp, bp, y, part, groups, G, n, hw, cs, slice, parts, act,
-                                   eps, ddof, s);
+  if (nhwc) {
+    e = vec > 1 ? launch_nhwc_groups<__nv_bfloat16, 8>(x, wp, bp, y, partials, groups, G, n, hw,
+                                                       band, cs, slice, parts, images, act, eps,
+                                                       ddof, s)
+                : launch_nhwc_groups<__nv_bfloat16, 1>(x, wp, bp, y, partials, groups, G, n, hw,
+                                                       band, cs, slice, parts, images, act, eps,
+                                                       ddof, s);
+  } else {
+    auto* part = static_cast<double2*>(partials);
+    if (bf16)
+      e = vec > 1 ? launch<__nv_bfloat16, 8>(x, wp, bp, y, part, groups, G, n, hw, cs, slice,
+                                             parts, act, eps, ddof, s)
+                  : launch<__nv_bfloat16, 1>(x, wp, bp, y, part, groups, G, n, hw, cs, slice,
+                                             parts, act, eps, ddof, s);
+    else
+      e = vec > 1 ? launch<float, 4>(x, wp, bp, y, part, groups, G, n, hw, cs, slice, parts, act,
+                                     eps, ddof, s)
+                  : launch<float, 1>(x, wp, bp, y, part, groups, G, n, hw, cs, slice, parts, act,
+                                     eps, ddof, s);
+  }
   return static_cast<int>(e);
 }
 

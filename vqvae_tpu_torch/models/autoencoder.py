@@ -1,8 +1,8 @@
 """Conv ResNet encoder / decoder (counterpart of ``vqvae_tpu/models/autoencoder.py``).
 
-NCHW inside, with the reference's torch module names, so that
-``vqvae_tpu.utils.torch_convert`` and ``vqvae_tpu_torch.utils.convert`` map
-weights both ways. The plain forms are carried: the JAX package's exact TPU
+NCHW-shaped tensors inside, with the reference's torch module names, so
+that ``vqvae_tpu.utils.torch_convert`` and ``vqvae_tpu_torch.utils.convert``
+map weights both ways. The plain forms are carried: the JAX package's exact TPU
 rewrites (pool folded into a stride-2 conv, upsample folded into an
 lhs-dilated conv, the fused GN-SiLU VJP, the padded output conv) are not.
 
@@ -15,6 +15,17 @@ pair, or the GroupNorm alone; an input in another dtype than the module's
 raises, on every device. Training under autograd and the sharded path run
 the module's own form (``ops/gn_silu.gn_silu_reference``): the kernel has no
 backward and no statistics across processes.
+
+The activations' memory format (``layout``), decided here alone at the
+entry of each half: channels-last (NHWC in memory) where the compute dtype
+is bf16 and the half's GroupNorm takes the kernel (autograd not recording,
+no sharded call), since cuDNN's bf16 convolutions on this card are NHWC
+kernels that would otherwise transpose every input in and every output
+back; each conv casts its weight to the input's layout in the one op that
+casts its dtype, the residual adds, nearest upsampling, padding and the
+attention blocks' rows keep the layout, and ``gn_silu`` takes it as it lies.
+Everywhere else contiguous NCHW: fp32 (cuDNN's fp32 kernels are NCHW),
+training under autograd and the sharded path.
 
 Spans (``utils/introspect.named_scope``): ``encoder`` and ``decoder``
 around each module's forward, and ``norm_act`` in ``norm_act``, the helper
@@ -57,12 +68,14 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from vqvae_tpu_torch.ops.gn_silu import gn_silu, gn_silu_reference
+from vqvae_tpu_torch.ops.gn_silu import channels_last, gn_silu, gn_silu_reference
 from vqvae_tpu_torch.utils.introspect import named_scope
 
 
 class Conv2d(nn.Conv2d):
-    """'same' conv that casts input and parameters to the compute dtype."""
+    """'same' conv that casts input and parameters to the compute dtype, the
+    weight in the input's layout (channels-last or not), so that cuDNN takes
+    both as they lie."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int, bias: bool,
                  dtype: torch.dtype = torch.float32,
@@ -81,7 +94,8 @@ class Conv2d(nn.Conv2d):
     def forward(self, x):
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
-        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+        fmt = torch.channels_last if channels_last(x) else torch.preserve_format
+        return self._conv_forward(x.to(dt), self.weight.to(dt, memory_format=fmt), bias)
 
 
 def _uniform(shape, bound: float, generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -128,6 +142,15 @@ class GroupNorm(nn.Module):
             return self.normalize(x, act=False)
         return gn_silu_reference(x, self.weight, self.bias, self.num_groups, self.eps,
                                  self.ddof, self.dtype, act=False, shards=self.shards)
+
+
+def layout(norm: GroupNorm, dtype: torch.dtype) -> torch.memory_format:
+    """The memory format of a half's activations for this call, from its
+    GroupNorm ``norm`` and compute ``dtype``: channels-last where ``dtype``
+    is bf16 and ``norm.takes_kernel()``, contiguous NCHW otherwise."""
+    if dtype == torch.bfloat16 and norm.takes_kernel():
+        return torch.channels_last
+    return torch.contiguous_format
 
 
 def norm_act(norm: GroupNorm, x: torch.Tensor) -> torch.Tensor:
@@ -228,7 +251,7 @@ class Encoder(nn.Module):
 
     def forward(self, x):
         with named_scope("encoder", images=x.shape[0]):
-            x = self.conv_in(x.to(self.dtype))
+            x = self.conv_in(x.to(self.dtype, memory_format=layout(self.norm, self.dtype)))
             x = self.final_residual(self.blocks(x))
             return self.conv_out(norm_act(self.norm, x)).float()
 
@@ -262,7 +285,7 @@ class Decoder(nn.Module):
 
     def forward(self, x):
         with named_scope("decoder", images=x.shape[0]):
-            x = self.conv_in(x.to(self.dtype))
+            x = self.conv_in(x.to(self.dtype, memory_format=layout(self.norm, self.dtype)))
             x = self.blocks(self.initial_residual(x))
             return torch.tanh(self.conv_out(norm_act(self.norm, x)).float())
 
@@ -291,7 +314,9 @@ class AttnBlock(_Checkpointed):
     x + proj_out(softmax(q k^T C^-1/2) v) with q, k, v 1x1 convs (with bias)
     of GroupNorm(x) (no SiLU), under the span ``attn``. The 1x1 convs run
     as matrix products on (B, h*w, C) rows, the attention as
-    ``F.scaled_dot_product_attention`` with one head of C channels."""
+    ``F.scaled_dot_product_attention`` with one head of C channels. The rows
+    and the output are views of a channels-last x; the sum keeps x's
+    layout."""
 
     def __init__(self, channels: int, dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None, remat: bool = False):
@@ -307,10 +332,10 @@ class AttnBlock(_Checkpointed):
     def _forward(self, x):
         b, c, h, w = x.shape
         with named_scope("attn", positions=h * w):
-            rows = self.norm(x).reshape(b, c, h * w).transpose(1, 2)
+            rows = self.norm(x).permute(0, 2, 3, 1).reshape(b, h * w, c)
             q, k, v = (_pointwise(m, rows)[:, None] for m in (self.q, self.k, self.v))
             out = _pointwise(self.proj_out, F.scaled_dot_product_attention(q, k, v)[:, 0])
-            return x + out.transpose(1, 2).reshape(b, c, h, w)
+            return x + out.reshape(b, h, w, c).permute(0, 3, 1, 2)
 
 
 class TamingDownsample(nn.Module):
@@ -399,7 +424,7 @@ class TamingEncoder(nn.Module):
 
     def forward(self, x):
         with named_scope("encoder", images=x.shape[0]):
-            x = self.conv_in(x.to(self.dtype))
+            x = self.conv_in(x.to(self.dtype, memory_format=layout(self.norm_out, self.dtype)))
             for level in self.down:
                 x = _run_level(level, x)
                 if hasattr(level, "downsample"):
@@ -449,7 +474,8 @@ class TamingDecoder(nn.Module):
 
     def forward(self, x):
         with named_scope("decoder", images=x.shape[0]):
-            x = self.mid(self.conv_in(self.post_quant_conv(x.to(self.dtype))))
+            x = x.to(self.dtype, memory_format=layout(self.norm_out, self.dtype))
+            x = self.mid(self.conv_in(self.post_quant_conv(x)))
             for level in reversed(self.up):
                 x = _run_level(level, x)
                 if hasattr(level, "upsample"):

@@ -25,7 +25,8 @@ def to_nchw(x: torch.Tensor) -> torch.Tensor:
 
 
 def to_nhwc(x: torch.Tensor) -> torch.Tensor:
-    """NCHW -> contiguous NHWC: the hop back."""
+    """NCHW-shaped -> contiguous NHWC: the hop back; a view of a tensor that
+    is channels-last in memory."""
     return x.permute(0, 2, 3, 1).contiguous()
 
 

@@ -4,7 +4,10 @@
 The public methods keep the JAX package's layout: NHWC images in [0,1]
 (float or uint8), normalized NHWC images in (-1,1) for ``forward`` /
 ``encode`` / ``decode``, and int32 tokens (B, H*W) in row-major (h, w)
-order. The modules inside run NCHW. The tokenizer API (``get_tokens``,
+order. The modules inside take NCHW-shaped tensors, contiguous or, in the
+bf16 inference autoencoder, channels-last in memory
+(``models/autoencoder.layout``); either way ``to_nhwc`` gives the public
+layout back. The tokenizer API (``get_tokens``,
 ``quantize``, ``reconstruct``, ``reconstruct_from_tokens``) runs under
 ``torch.inference_mode()``.
 
