@@ -23,7 +23,8 @@ exit and no result line:
    a second launch bit-identical, each also channels-last (the NHWC form:
    ``gn_silu.nhwc_calls`` counts it); and its times at ``GN_TIMED``
    (taming's largest decoder call, contiguous and channels-last, the 16^2
-   calls of both decoders, the export encoder's largest) beside its byte
+   calls of both decoders, the export encoder's largest, MoVQ's 512^2 and
+   256^2 decoder calls at batch 8 channels-last, two-pass) beside its byte
    bound (one read and one write), the plain version's and
    ``F.group_norm`` + ``F.silu`` (``library_ms``), with the form ``plan`` or
    ``plan_nhwc`` picks;
@@ -39,10 +40,12 @@ exit and no result line:
    ``example_confs/standard_vqvae.yaml`` with seeded random weights, at
    batch 1, 8 and 32, counting kernel launches (fp32: no NHWC call); then
    bf16 decoding: ``reconstruct_from_tokens`` of ``gumbel_vqgan.yaml`` and
-   ``taming_vqgan_f16.yaml`` at batch 32 under a profiler capture, which
-   must hold no cuDNN ``nchwToNhwc`` / ``nhwcToNchw`` kernel, with
-   ``gn_silu.nhwc_calls`` equal to the decoder's GroupNorm calls and the
-   images contiguous NHWC;
+   ``taming_vqgan_f16.yaml`` at batch 32 and of ``kandinsky22_movq.yaml``
+   (512^2) at batch 8 under a profiler capture, which must hold no cuDNN
+   ``nchwToNhwc`` / ``nhwcToNchw`` kernel, with ``gn_silu.nhwc_calls``
+   equal to the decoder's GroupNorm calls, ``spatial_norm.calls`` to its
+   SpatialNorms (33 in MoVQ's, 0 in the others) and the images contiguous
+   NHWC;
 5. B2 vs plain: the nearest-code-statistics kernel against
    ``nearest_codes_stats_reference`` at the EMA training shape and at
    ragged ones: codes by B1's near-tie rule, counts exact, sums within
@@ -264,7 +267,7 @@ from vqvae_tpu_torch.eval import fid as fid_module
 from vqvae_tpu_torch.eval import quality_parity
 from vqvae_tpu_torch.eval.inception import make_pool3_extractor
 from vqvae_tpu_torch.models import quantizers
-from vqvae_tpu_torch.models.autoencoder import GroupNorm
+from vqvae_tpu_torch.models.autoencoder import GroupNorm, SpatialNorm, spatial_norm
 from vqvae_tpu_torch.models.preprocess import preprocess_batch
 from vqvae_tpu_torch.models.vqvae import VQVAE
 from vqvae_tpu_torch.ops import (_build, fused_dbwd, fused_dbwd_cuda, gn_silu, gn_silu_cuda,
@@ -363,11 +366,15 @@ BENCH_FP32_STEPS = 4        # serve (e): calls per window of the fp32 bench_infe
 GRID_SHARE = 1e-10          # serve (f): float64 card vs CPU, share of the largest entry
 # GroupNorm -> SiLU (phase 2): the timed calls (B, C, H, W), dtype, ddof; the
 # checked ones also with the input's mean and spread
-# channels-last (the NHWC form), bf16 decoding's layout
+# channels-last (the NHWC form), bf16 decoding's layout; the last three are
+# MoVQ's 512^2 and 256^2 decoder calls at its cell's batch of 8 (two-pass)
 GN_TIMED = [((32, 128, 256, 256), torch.bfloat16, 0, False),
             ((32, 128, 256, 256), torch.bfloat16, 0, True),
             ((32, 512, 16, 16), torch.bfloat16, 0, False), ((32, 512, 16, 16), torch.bfloat16, 0, True),
-            ((256, 128, 256, 256), torch.float32, 1, False)]
+            ((256, 128, 256, 256), torch.float32, 1, False),
+            ((8, 256, 512, 512), torch.bfloat16, 0, True),
+            ((8, 128, 512, 512), torch.bfloat16, 0, True),
+            ((8, 256, 256, 256), torch.bfloat16, 0, True)]
 GN_CHECKED = [case[:3] + (1.5, 2.0, case[3]) for case in GN_TIMED] + [
     ((2, 64, 7, 9), torch.bfloat16, 1, 1.5, 2.0, False),
     ((2, 64, 7, 9), torch.bfloat16, 1, 1.5, 2.0, True),
@@ -376,8 +383,9 @@ GN_CHECKED = [case[:3] + (1.5, 2.0, case[3]) for case in GN_TIMED] + [
     ((2, 128, 256, 256), torch.bfloat16, 0, 50.0, 1.0, False),
     ((2, 128, 256, 256), torch.bfloat16, 0, 50.0, 1.0, True),
     ((2, 128, 256, 256), torch.float32, 1, -50.0, 1.0, False)]
-DECODE_CONFIGS = ("gumbel_vqgan", "taming_vqgan_f16")   # bf16 decoding: channels-last
-DECODE_BATCH = 32
+# bf16 decoding, channels-last: each config with its batch (MoVQ's at 512^2 as
+# its cell runs it)
+DECODE_CONFIGS = (("gumbel_vqgan", 32), ("taming_vqgan_f16", 32), ("kandinsky22_movq", 8))
 # published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): fp32 on the
 # CUDA cores, TF32 on the tensor cores (dense), and device memory
 FP32_FLOPS = 67e12
@@ -692,19 +700,22 @@ def phase_slice(cfg, device):
 
 
 def phase_decode(device, card: str) -> int:
-    """bf16 ``reconstruct_from_tokens`` at ``DECODE_BATCH`` for each of
-    ``DECODE_CONFIGS``: under a profiler capture no cuDNN layout transpose,
-    every GroupNorm call in the NHWC form, contiguous NHWC images; its time.
-    -> the NHWC calls."""
+    """bf16 ``reconstruct_from_tokens`` at each of ``DECODE_CONFIGS``' batch:
+    under a profiler capture no cuDNN layout transpose, every GroupNorm call
+    in the NHWC form, one ``spatial_norm.calls`` a SpatialNorm (MoVQ's 33,
+    none elsewhere), contiguous NHWC images; its time. -> the NHWC calls."""
     calls = 0
-    for name in DECODE_CONFIGS:
+    for name, batch in DECODE_CONFIGS:
         path = ROOT / "example_confs" / f"{name}.yaml"
-        model = VQVAE.from_config(load_config(str(path)), dtype=torch.bfloat16, device=device,
+        cfg = load_config(str(path))
+        model = VQVAE.from_config(cfg, dtype=torch.bfloat16, device=device,
                                   generator=torch.Generator().manual_seed(SEED))
         norms = sum(isinstance(m, GroupNorm) for m in model.decoder.modules())
+        spatial = sum(isinstance(m, SpatialNorm) for m in model.decoder.modules())
         gen = torch.Generator(device=device).manual_seed(SEED + 3)
         side = model.quantizer.codebook.weight.shape[0]
-        tokens = torch.randint(0, side, (DECODE_BATCH, 256), device=device, generator=gen)
+        tokens = torch.randint(0, side, (batch, cfg.latent_size ** 2), device=device,
+                               generator=gen)
         model.reconstruct_from_tokens(tokens)   # cuDNN's set-up outside the capture
         torch.cuda.synchronize()
         _reset_counts()
@@ -714,17 +725,19 @@ def phase_decode(device, card: str) -> int:
         kernels = {e.key for e in prof.key_averages()}
         transposes = sorted(k for k in kernels if "nchwToNhwc" in k or "nhwcToNchw" in k)
         nhwc, launches = gn_silu.gn_silu.nhwc_calls, gn_silu.gn_silu.launches
+        modulated = spatial_norm.calls
         ms = cuda_ms(lambda: model.reconstruct_from_tokens(tokens), reps=5)
-        print(f"decode {name} bf16 batch {DECODE_BATCH}: {len(kernels)} kernels, layout "
+        print(f"decode {name} bf16 batch {batch}: {len(kernels)} kernels, layout "
               f"transposes {transposes or 'none'}; gn_silu NHWC calls {nhwc} of {norms} GroupNorm "
-              f"calls, launches {launches}; images {tuple(images.shape)} "
-              f"contiguous {images.is_contiguous()}")
-        print(f"time [{card}]: decode {name} bf16 batch {DECODE_BATCH}: {ms:.2f} ms, "
-              f"{DECODE_BATCH * 1000 / ms:.1f} images/s")
+              f"calls, launches {launches}; spatial_norm calls {modulated} of {spatial} "
+              f"SpatialNorms; images {tuple(images.shape)} contiguous {images.is_contiguous()}")
+        print(f"time [{card}]: decode {name} bf16 batch {batch}: {ms:.2f} ms, "
+              f"{batch * 1000 / ms:.1f} images/s")
         check(not transposes, f"decode {name}: no NCHW <-> NHWC transpose")
         check(nhwc == norms, f"decode {name}: every GroupNorm call in the NHWC form")
-        check(images.shape == (DECODE_BATCH, 256, 256, 3) and images.is_contiguous(),
-              f"decode {name}: contiguous NHWC images")
+        check(modulated == spatial, f"decode {name}: one spatial_norm call a SpatialNorm")
+        check(images.shape == (batch, cfg.image_size, cfg.image_size, 3)
+              and images.is_contiguous(), f"decode {name}: contiguous NHWC images")
         calls += nhwc
         del model, images
         torch.cuda.empty_cache()
@@ -1159,6 +1172,7 @@ def _reset_counts():
     nearest_codes.launches = nearest_codes_stats.launches = 0
     fused_dbwd.blur_t_gate.launches = fused_dbwd.skip_fanout_bwd.launches = 0
     gn_silu.gn_silu.launches = gn_silu.gn_silu.nhwc_calls = 0
+    spatial_norm.calls = 0
 
 
 def _norm_calls(config) -> tuple:

@@ -77,15 +77,25 @@ def test_no_source_file_imports_jax():
 def test_config_parser_equals_the_jax_packages(path):
     """On every SerezD-layout YAML the port's reading equals the JAX
     package's. The JAX package has no taming layout: on
-    ``taming_vqgan_f16.yaml`` the port's reading is checked alone."""
+    ``taming_vqgan_f16.yaml`` and ``kandinsky22_movq.yaml`` the port's
+    reading is checked alone."""
     from vqvae_tpu_torch import config as port_config
     if port_config.get_model_conf(str(path))["autoencoder"].get("layout") == "taming":
         cfg = port_config.load_config(str(path))
-        assert path.name == "taming_vqgan_f16.yaml"
         assert isinstance(cfg.autoencoder, port_config.TamingAutoencoderConf)
+        assert cfg.loss is None and cfg.training is None
+        if path.name == "kandinsky22_movq.yaml":
+            assert cfg.autoencoder.norm_type == "spatial"
+            assert (cfg.autoencoder.attn_resolutions, cfg.autoencoder.z_channels) == ((64,), 4)
+            assert cfg.autoencoder.channel_multipliers == (1, 2, 2, 4)
+            assert (cfg.quantizer.num_embeddings, cfg.quantizer.embedding_dim) == (16384, 4)
+            assert cfg.latent_size == 64
+            return
+        assert path.name == "taming_vqgan_f16.yaml"
+        assert cfg.autoencoder.norm_type == "group"
         assert (cfg.autoencoder.attn_resolutions, cfg.autoencoder.z_channels) == ((16,), 256)
         assert cfg.autoencoder.channel_multipliers == (1, 1, 2, 2, 4)
-        assert cfg.latent_size == 16 and cfg.loss is None and cfg.training is None
+        assert cfg.latent_size == 16
         return
     from vqvae_tpu import config as jax_config
     want = dataclasses.asdict(jax_config.load_config(str(path)))

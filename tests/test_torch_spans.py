@@ -230,6 +230,47 @@ def test_taming_attention_blocks_give_attn_spans(captured):
     assert tokens.shape == (BATCH, 64) and images.shape == (BATCH, 16, 16, 3)
 
 
+def test_movq_spatial_norms_give_spatial_norm_spans(captured):
+    """MoVQ's decoder (the benchmark reference's tiny copy: attention at
+    8^2): each SpatialNorm call opens one ``spatial_norm`` span (attributes
+    ``elements``, ``element_bytes``, ``cond_elements``, ``act``) and counts one ``spatial_norm.calls``, 16 a decode (the middle
+    block's 5, the first level's 2 blocks x 2 and 2 attention blocks', the
+    second level's 4 and ``norm_out``), the attention blocks' inside
+    ``attn`` without the SiLU; the decoder opens no ``norm_act`` span, the
+    encoder (taming's) no ``spatial_norm`` span; a taming decode counts
+    none."""
+    from benchmark.reference import movq, taming
+    from vqvae_tpu_torch.config import parse_config
+
+    def model(name, tiny):
+        cfg = tiny(json.loads((ROOT / "benchmark" / "configs" / f"{name}.json").read_text()))
+        return vqvae.VQVAE.from_config(
+            parse_config({k: cfg[k] for k in ("image_size", "autoencoder", "quantizer")}),
+            device="cpu", generator=torch.Generator().manual_seed(0))
+
+    movq_model = model("kandinsky22_movq", movq.tiny)
+    calls = autoencoder.spatial_norm.calls
+    (tokens, images), spans = captured(lambda: api_calls(movq_model))
+    assert autoencoder.spatial_norm.calls - calls == 16
+    norms = by_name(spans, "spatial_norm")
+    assert [spans[s["parent"]]["name"] for s in norms] == \
+        ["decoder"] * 2 + ["attn"] + ["decoder"] * 4 + ["attn"] + ["decoder"] * 2 + ["attn"] + \
+        ["decoder"] * 5
+    assert all(ancestors(spans, s)[-1] == "api.reconstruct_from_tokens" for s in norms)
+    assert [s["attrs"]["act"] for s in norms if spans[s["parent"]]["name"] == "attn"] == \
+        [False] * 3
+    first = norms[0]["attrs"]
+    assert first == {"elements": BATCH * 64 * 8 * 8, "element_bytes": 4,
+                     "cond_elements": BATCH * 4 * 8 * 8, "act": True}
+    assert norms[-1]["attrs"]["elements"] == BATCH * 32 * 16 * 16
+    assert {spans[s["parent"]]["name"] for s in by_name(spans, "norm_act")} == {"encoder"}
+    assert tokens.shape == (BATCH, 64) and images.shape == (BATCH, 16, 16, 3)
+    taming_model = model("taming_vqgan_f16", taming.tiny)
+    calls = autoencoder.spatial_norm.calls
+    captured(lambda: api_calls(taming_model))
+    assert autoencoder.spatial_norm.calls == calls
+
+
 def test_remat_recomputed_spans_keep_the_stack(monkeypatch, tmp_path, captured):
     trainer, state = make_trainer(monkeypatch, tmp_path, remat=True)
     trainer.host_step = 1   # a plain step

@@ -18,6 +18,7 @@ from typing import ClassVar, Optional
 import yaml
 
 QUANTIZER_TYPES = ("standard", "ema", "gumbel", "entropy")
+NORM_TYPES = ("group", "spatial")
 GAN_LOSS_TYPES = ("hinge", "non-saturating")
 
 
@@ -46,9 +47,12 @@ class TamingAutoencoderConf(AutoencoderConf):
     """taming-transformers' Encoder / Decoder (``layout: taming``): attention
     after each residual block at the resolutions in ``attn_resolutions``,
     latents of ``z_channels`` between each half and its ``quant_conv`` /
-    ``post_quant_conv``."""
+    ``post_quant_conv``. ``norm_type``: ``group``, taming's GroupNorm with
+    an affine, or ``spatial``, MoVQ's SpatialNorm in every normalization of
+    the decoder (the GroupNorm modulated by the quantized latents)."""
     attn_resolutions: tuple
     z_channels: int
+    norm_type: str = "group"
     layout: ClassVar[str] = "taming"
 
     @property
@@ -151,12 +155,17 @@ def parse_config(raw: dict) -> Config:
                  num_res_blocks=int(ae["num_res_blocks"]),
                  channel_multipliers=tuple(int(m) for m in ae["channel_multipliers"]))
     layout = _opt(ae, "layout", "serezd")
+    norm_type = str(_opt(ae, "norm_type", "group"))
+    if norm_type not in NORM_TYPES:
+        raise ValueError(f"unknown norm_type: {norm_type!r} (must be one of {NORM_TYPES})")
     if layout == "serezd":
+        if norm_type != "group":
+            raise ValueError(f"norm_type {norm_type!r} needs layout: taming")
         ae_conf = AutoencoderConf(**shape)
     elif layout == "taming":
         ae_conf = TamingAutoencoderConf(
             **shape, attn_resolutions=tuple(int(r) for r in _opt(ae, "attn_resolutions", ())),
-            z_channels=int(ae["z_channels"]))
+            z_channels=int(ae["z_channels"]), norm_type=norm_type)
     else:
         raise ValueError(f"unknown autoencoder layout: {layout!r} (serezd or taming)")
     if ae_conf.num_res_blocks < 1:

@@ -31,7 +31,9 @@ Spans (``utils/introspect.named_scope``): ``encoder`` and ``decoder``
 around each module's forward, and ``norm_act`` in ``norm_act``, the helper
 every GroupNorm -> SiLU pair goes through, one span a pair whichever form
 runs; ``attn`` (attribute ``positions``, h*w) around each taming attention
-block.
+block; ``spatial_norm`` around each SpatialNorm call (``spatial_norm``,
+with its SiLU where the block takes one), counted in
+``spatial_norm.calls``.
 
 ``remat=True`` checkpoints every ``ResBlock`` (the JAX modules' ``nn.remat``,
 ``vqvae_tpu/models/autoencoder.py:527,563``): its activations are recomputed
@@ -55,7 +57,11 @@ names, conv biases everywhere, the biased GroupNorm variance (the one
 single-head attention (``AttnBlock``, span ``attn``) at the resolutions
 listed, a middle block in both halves and no output tanh; ``VQModel``'s
 ``quant_conv`` closes the encoder and its ``post_quant_conv`` opens the
-decoder, so each half meets the quantizer at the codebook's width.
+decoder, so each half meets the quantizer at the codebook's width. With
+``norm_type: spatial`` (MoVQ, Kandinsky 2.2's decoder) every normalization
+of the taming decoder is a ``SpatialNorm`` conditioned on the quantized
+latents ``zq``, the decoder's input before ``post_quant_conv``, which the
+decoder hands each block as an explicit argument.
 """
 
 from __future__ import annotations
@@ -143,11 +149,16 @@ class GroupNorm(nn.Module):
         return gn_silu_reference(x, self.weight, self.bias, self.num_groups, self.eps,
                                  self.ddof, self.dtype, act=False, shards=self.shards)
 
+    def act(self, x):
+        """SiLU(self(x)): ``norm_act``."""
+        return norm_act(self, x)
 
-def layout(norm: GroupNorm, dtype: torch.dtype) -> torch.memory_format:
+
+def layout(norm, dtype: torch.dtype) -> torch.memory_format:
     """The memory format of a half's activations for this call, from its
-    GroupNorm ``norm`` and compute ``dtype``: channels-last where ``dtype``
-    is bf16 and ``norm.takes_kernel()``, contiguous NCHW otherwise."""
+    last norm ``norm`` (a ``GroupNorm`` or ``SpatialNorm``) and compute
+    ``dtype``: channels-last where ``dtype`` is bf16 and
+    ``norm.takes_kernel()``, contiguous NCHW otherwise."""
     if dtype == torch.bfloat16 and norm.takes_kernel():
         return torch.channels_last
     return torch.contiguous_format
@@ -162,15 +173,86 @@ def norm_act(norm: GroupNorm, x: torch.Tensor) -> torch.Tensor:
         return F.silu(norm(x))
 
 
+class SpatialNorm(nn.Module):
+    """MoVQ's SpatialNorm (Zheng et al., NeurIPS 2022; diffusers'
+    ``SpatialNorm``, under its child names): GN(f) * conv_y(up(zq)) +
+    conv_b(up(zq)), where GN is taming's GroupNorm (biased variance, an
+    affine), conv_y and conv_b are 1x1 convs with bias from the quantized
+    latents' ``cond_channels`` to f's ``channels``, and up is the nearest
+    upsampling of zq to f's size. A 1x1 conv commutes with nearest
+    upsampling, so both convs run on zq at the latents' resolution and the
+    modulation reads them at (y // s, x // s) (``_modulate``): no full-size
+    scale or shift is formed. Calls go through ``spatial_norm``."""
+
+    def __init__(self, channels: int, cond_channels: int, dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.norm_layer = GroupNorm(channels, dtype=dtype, unbiased=False)
+        self.conv_y = Conv2d(cond_channels, channels, 1, bias=True, dtype=dtype,
+                             generator=generator)
+        self.conv_b = Conv2d(cond_channels, channels, 1, bias=True, dtype=dtype,
+                             generator=generator)
+
+    def takes_kernel(self) -> bool:
+        return self.norm_layer.takes_kernel()
+
+    def forward(self, f, zq):
+        return spatial_norm(self, f, zq, act=False)
+
+    def act(self, f, zq):
+        """SiLU(self(f, zq))."""
+        return spatial_norm(self, f, zq, act=True)
+
+
+def _modulate(n: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
+    """n * up(scale) + up(shift): ``scale`` and ``shift`` (B, C, h, w), up
+    the nearest upsampling to n's (H, W) by whole factors s = H / h = W / w,
+    as one broadcast ``addcmul`` over (B, C, h, s, w, s) views of n; the
+    result keeps n's memory format."""
+    h, w = scale.shape[2:]
+    n6 = n.unflatten(3, (w, -1)).unflatten(2, (h, -1))
+    out = torch.addcmul(shift[:, :, :, None, :, None], n6, scale[:, :, :, None, :, None])
+    return out.flatten(4, 5).flatten(2, 3)
+
+
+def spatial_norm(norm: SpatialNorm, f: torch.Tensor, zq: torch.Tensor,
+                 act: bool) -> torch.Tensor:
+    """``norm``'s SpatialNorm of f given zq, then SiLU where ``act``, under
+    the span ``spatial_norm`` (attributes: ``elements`` and
+    ``element_bytes`` of f, ``cond_elements`` of zq, ``act``), counted in
+    ``spatial_norm.calls``. The GroupNorm is
+    the module's own: ``gn_silu`` with the SiLU off where it
+    ``takes_kernel``, the plain form under autograd."""
+    spatial_norm.calls += 1
+    with named_scope("spatial_norm", elements=f.numel(), element_bytes=f.element_size(),
+                     cond_elements=zq.numel(), act=act):
+        out = _modulate(norm.norm_layer(f), norm.conv_y(zq), norm.conv_b(zq))
+        return F.silu(out) if act else out
+
+
+spatial_norm.calls = 0
+
+
+def _norm(channels: int, cond_channels: int, dtype: torch.dtype,
+          generator: Optional[torch.Generator], unbiased: bool) -> nn.Module:
+    """A ``SpatialNorm`` on ``cond_channels`` of latents where there are
+    any, else a ``GroupNorm``."""
+    if cond_channels:
+        return SpatialNorm(channels, cond_channels, dtype, generator)
+    return GroupNorm(channels, dtype=dtype, unbiased=unbiased)
+
+
 class _Checkpointed(nn.Module):
     """A block whose ``_forward`` is checkpointed where autograd records and
-    ``remat`` is set; the plain forward elsewhere."""
+    ``remat`` is set; the plain forward elsewhere. ``cond``: the latents a
+    SpatialNorm block takes, or nothing."""
 
-    def forward(self, x):
+    def forward(self, x, *cond):
         if self.remat and torch.is_grad_enabled():
             # the block draws no random numbers: no RNG state to replay
-            return checkpoint(self._forward, x, use_reentrant=False, preserve_rng_state=False)
-        return self._forward(x)
+            return checkpoint(self._forward, x, *cond, use_reentrant=False,
+                              preserve_rng_state=False)
+        return self._forward(x, *cond)
 
 
 class ResBlock(_Checkpointed):
@@ -179,25 +261,27 @@ class ResBlock(_Checkpointed):
     by default: bias-free convs, the unbiased GroupNorm variance, the
     shortcut named ``conv_shortcut``. ``bias``, ``unbiased`` and
     ``shortcut_name`` (the attribute, and so the ``state_dict`` key) give
-    taming's ``ResnetBlock`` (``_taming_block``)."""
+    taming's ``ResnetBlock`` (``_taming_block``); ``cond_channels`` > 0
+    MoVQ's (diffusers' ``ResnetBlockCondNorm2D``): both norms SpatialNorms
+    of the latents the block is called with."""
 
     def __init__(self, in_ch: int, out_ch: int, dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None, remat: bool = False,
                  bias: bool = False, unbiased: bool = True,
-                 shortcut_name: str = "conv_shortcut"):
+                 shortcut_name: str = "conv_shortcut", cond_channels: int = 0):
         super().__init__()
         self.remat = remat
         self.shortcut_name = shortcut_name
-        self.norm1 = GroupNorm(in_ch, dtype=dtype, unbiased=unbiased)
+        self.norm1 = _norm(in_ch, cond_channels, dtype, generator, unbiased)
         self.conv1 = Conv2d(in_ch, out_ch, 3, bias=bias, dtype=dtype, generator=generator)
-        self.norm2 = GroupNorm(out_ch, dtype=dtype, unbiased=unbiased)
+        self.norm2 = _norm(out_ch, cond_channels, dtype, generator, unbiased)
         self.conv2 = Conv2d(out_ch, out_ch, 3, bias=bias, dtype=dtype, generator=generator)
         setattr(self, shortcut_name, Conv2d(in_ch, out_ch, 1, bias=bias, dtype=dtype,
                                             generator=generator) if in_ch != out_ch else None)
 
-    def _forward(self, x):
-        residual = self.conv1(norm_act(self.norm1, x))
-        residual = self.conv2(norm_act(self.norm2, residual))
+    def _forward(self, x, *cond):
+        residual = self.conv1(self.norm1.act(x, *cond))
+        residual = self.conv2(self.norm2.act(residual, *cond))
         shortcut = getattr(self, self.shortcut_name)
         if shortcut is not None:
             x = shortcut(x)
@@ -294,12 +378,14 @@ class Decoder(nn.Module):
 
 
 def _taming_block(in_ch: int, out_ch: int, dtype: torch.dtype,
-                  generator: Optional[torch.Generator], remat: bool) -> ResBlock:
+                  generator: Optional[torch.Generator], remat: bool,
+                  cond_channels: int = 0) -> ResBlock:
     """``ResnetBlock`` as the VQGAN builds it (no time embedding, dropout
     0): 3x3 convs with bias, a 1x1 ``nin_shortcut`` with bias when channels
-    change, the biased GroupNorm variance."""
+    change, the biased GroupNorm variance; SpatialNorms where
+    ``cond_channels``."""
     return ResBlock(in_ch, out_ch, dtype, generator, remat, bias=True, unbiased=False,
-                    shortcut_name="nin_shortcut")
+                    shortcut_name="nin_shortcut", cond_channels=cond_channels)
 
 
 def _pointwise(conv: Conv2d, x: torch.Tensor) -> torch.Tensor:
@@ -316,23 +402,25 @@ class AttnBlock(_Checkpointed):
     as matrix products on (B, h*w, C) rows, the attention as
     ``F.scaled_dot_product_attention`` with one head of C channels. The rows
     and the output are views of a channels-last x; the sum keeps x's
-    layout."""
+    layout. ``cond_channels`` > 0: the norm is a SpatialNorm of the latents
+    the block is called with (MoVQ)."""
 
     def __init__(self, channels: int, dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None, remat: bool = False):
+                 generator: Optional[torch.Generator] = None, remat: bool = False,
+                 cond_channels: int = 0):
         super().__init__()
         self.remat = remat
-        self.norm = GroupNorm(channels, dtype=dtype, unbiased=False)
+        self.norm = _norm(channels, cond_channels, dtype, generator, unbiased=False)
         self.q = Conv2d(channels, channels, 1, bias=True, dtype=dtype, generator=generator)
         self.k = Conv2d(channels, channels, 1, bias=True, dtype=dtype, generator=generator)
         self.v = Conv2d(channels, channels, 1, bias=True, dtype=dtype, generator=generator)
         self.proj_out = Conv2d(channels, channels, 1, bias=True, dtype=dtype,
                                generator=generator)
 
-    def _forward(self, x):
+    def _forward(self, x, *cond):
         b, c, h, w = x.shape
         with named_scope("attn", positions=h * w):
-            rows = self.norm(x).permute(0, 2, 3, 1).reshape(b, h * w, c)
+            rows = self.norm(x, *cond).permute(0, 2, 3, 1).reshape(b, h * w, c)
             q, k, v = (_pointwise(m, rows)[:, None] for m in (self.q, self.k, self.v))
             out = _pointwise(self.proj_out, F.scaled_dot_product_attention(q, k, v)[:, 0])
             return x + out.reshape(b, h, w, c).permute(0, 3, 1, 2)
@@ -354,17 +442,18 @@ class TamingDownsample(nn.Module):
 
 class TamingMiddle(nn.Module):
     """``mid``: ``block_1`` -> ``attn_1`` -> ``block_2`` at the lowest
-    resolution, in both halves."""
+    resolution, in both halves; SpatialNorms where ``cond_channels``."""
 
     def __init__(self, channels: int, dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None, remat: bool = False):
+                 generator: Optional[torch.Generator] = None, remat: bool = False,
+                 cond_channels: int = 0):
         super().__init__()
-        self.block_1 = _taming_block(channels, channels, dtype, generator, remat)
-        self.attn_1 = AttnBlock(channels, dtype, generator, remat)
-        self.block_2 = _taming_block(channels, channels, dtype, generator, remat)
+        self.block_1 = _taming_block(channels, channels, dtype, generator, remat, cond_channels)
+        self.attn_1 = AttnBlock(channels, dtype, generator, remat, cond_channels)
+        self.block_2 = _taming_block(channels, channels, dtype, generator, remat, cond_channels)
 
-    def forward(self, x):
-        return self.block_2(self.attn_1(self.block_1(x)))
+    def forward(self, x, *cond):
+        return self.block_2(self.attn_1(self.block_1(x, *cond), *cond), *cond)
 
 
 def _level(blocks: list, attn: list) -> nn.Module:
@@ -377,11 +466,11 @@ def _level(blocks: list, attn: list) -> nn.Module:
     return level
 
 
-def _run_level(level: nn.Module, x: torch.Tensor) -> torch.Tensor:
+def _run_level(level: nn.Module, x: torch.Tensor, *cond) -> torch.Tensor:
     for i, block in enumerate(level.block):
-        x = block(x)
+        x = block(x, *cond)
         if len(level.attn):
-            x = level.attn[i](x)
+            x = level.attn[i](x, *cond)
     return x
 
 
@@ -439,48 +528,54 @@ class TamingDecoder(nn.Module):
     [``num_res_blocks`` + 1 residual blocks (each followed by attention
     where the resolution is in ``attn_resolutions``) + nearest x2 and a 3x3
     conv but at the first level] -> GN -> SiLU -> 3x3 conv to RGB; fp32
-    output with no tanh."""
+    output with no tanh. ``norm_type`` ``spatial``: every GN a SpatialNorm
+    of the decoder's input zq (``in_channels``), MoVQ's decoder."""
 
     def __init__(self, channels: int, num_res_blocks: int,
                  channel_multipliers: Sequence[int], attn_resolutions: Sequence[int],
                  resolution: int, z_channels: int, in_channels: int,
                  dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None, remat: bool = False):
+                 generator: Optional[torch.Generator] = None, remat: bool = False,
+                 norm_type: str = "group"):
         super().__init__()
         self.dtype = dtype
+        self.spatial = norm_type == "spatial"
+        cond = in_channels if self.spatial else 0
         ch = channels * channel_multipliers[-1]
         res = resolution // 2 ** (len(channel_multipliers) - 1)
         self.post_quant_conv = Conv2d(in_channels, z_channels, 1, bias=True, dtype=dtype,
                                       generator=generator)
         self.conv_in = Conv2d(z_channels, ch, 3, bias=True, dtype=dtype, generator=generator)
-        self.mid = TamingMiddle(ch, dtype, generator, remat)
+        self.mid = TamingMiddle(ch, dtype, generator, remat, cond)
         up = []
         for i in reversed(range(len(channel_multipliers))):
             blocks, attn = [], []
             for _ in range(num_res_blocks + 1):
                 blocks.append(_taming_block(ch, channels * channel_multipliers[i], dtype,
-                                           generator, remat))
+                                           generator, remat, cond))
                 ch = channels * channel_multipliers[i]
                 if res in attn_resolutions:
-                    attn.append(AttnBlock(ch, dtype, generator, remat))
+                    attn.append(AttnBlock(ch, dtype, generator, remat, cond))
             level = _level(blocks, attn)
             if i != 0:
                 level.upsample = Upsample(ch, dtype, generator)
                 res *= 2
             up.insert(0, level)
         self.up = nn.ModuleList(up)
-        self.norm_out = GroupNorm(ch, dtype=dtype, unbiased=False)
+        self.norm_out = _norm(ch, cond, dtype, generator, unbiased=False)
         self.conv_out = Conv2d(ch, 3, 3, bias=True, dtype=dtype, generator=generator)
 
     def forward(self, x):
         with named_scope("decoder", images=x.shape[0]):
             x = x.to(self.dtype, memory_format=layout(self.norm_out, self.dtype))
-            x = self.mid(self.conv_in(self.post_quant_conv(x)))
+            # a SpatialNorm's zq: the quantized latents, before post_quant_conv
+            cond = (x,) if self.spatial else ()
+            h = self.mid(self.conv_in(self.post_quant_conv(x)), *cond)
             for level in reversed(self.up):
-                x = _run_level(level, x)
+                h = _run_level(level, h, *cond)
                 if hasattr(level, "upsample"):
-                    x = level.upsample(x)
-            return self.conv_out(norm_act(self.norm_out, x)).float()
+                    h = level.upsample(h)
+            return self.conv_out(self.norm_out.act(h, *cond)).float()
 
 
 def build_autoencoder(ae, image_size: int, out_channels: int, embedding_dim: int,
@@ -490,12 +585,12 @@ def build_autoencoder(ae, image_size: int, out_channels: int, embedding_dim: int
     """(encoder, decoder) for a config's ``autoencoder`` block ``ae``, in its
     layout: the encoder emits ``out_channels``, the decoder takes
     ``embedding_dim``; ``image_size`` is the side the taming layout counts
-    its resolutions from. The JAX package's config, which tests hand in too,
-    has no ``layout``: SerezD's."""
+    its resolutions from, and its ``norm_type`` the decoder's norms. The JAX
+    package's config, which tests hand in too, has no ``layout``: SerezD's."""
     shape = (ae.channels, ae.num_res_blocks, tuple(ae.channel_multipliers))
     if getattr(ae, "layout", "serezd") == "taming":
         shape += (tuple(ae.attn_resolutions), image_size, ae.z_channels)
         return (TamingEncoder(*shape, out_channels, dtype, generator, remat),
-                TamingDecoder(*shape, embedding_dim, dtype, generator, remat))
+                TamingDecoder(*shape, embedding_dim, dtype, generator, remat, ae.norm_type))
     return (Encoder(*shape, out_channels, dtype, generator, remat),
             Decoder(*shape, embedding_dim, dtype, generator, remat))
